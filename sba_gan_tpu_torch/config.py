@@ -1,0 +1,219 @@
+"""Typed configuration for the PyTorch port.
+
+The same schema and strict YAML merge as the JAX package's config (unknown
+keys raise ``KeyError``, type mismatches raise ``ValueError``), so every
+preset of the repository loads unchanged.  The port reads ``TREE``,
+``GAN``, ``TEXT``, ``TRAIN.MIXING``, ``RNN_TYPE`` and
+``MODEL.TEXT_ENCODER``.  The ``JAX`` and ``BENCH`` groups are accepted so
+that presets carrying them still load, and have no effect here: which
+word-attention implementation runs is decided by the device of the tensors
+(CUDA kernel on the card, plain PyTorch on the CPU), not by a key.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+from typing import Any, Dict
+
+import yaml
+
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+
+
+class ConfigDict(dict):
+    """dict with attribute access; values are plain Python scalars/ConfigDicts."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def __deepcopy__(self, memo):
+        return ConfigDict({k: copy.deepcopy(v, memo) for k, v in self.items()})
+
+
+def _cd(d: Dict[str, Any]) -> ConfigDict:
+    out = ConfigDict()
+    for k, v in d.items():
+        out[k] = _cd(v) if isinstance(v, dict) else v
+    return out
+
+
+def default_config() -> ConfigDict:
+    return _cd(
+        {
+            "DATASET_NAME": "birds",
+            "CONFIG_NAME": "",
+            "DATA_DIR": "",
+            "GPU_ID": 0,
+            "CUDA": True,
+            "WORKERS": 6,
+            "RNN_TYPE": "LSTM",  # 'LSTM' | 'GRU'
+            "B_VALIDATION": False,
+            "TREE": {
+                "BRANCH_NUM": 3,
+                "BASE_SIZE": 64,
+            },
+            "TRAIN": {
+                "BATCH_SIZE": 64,
+                "MAX_EPOCH": 600,
+                "SNAPSHOT_INTERVAL": 2000,
+                "DISCRIMINATOR_LR": 2e-4,
+                "GENERATOR_LR": 2e-4,
+                "ENCODER_LR": 2e-4,
+                "RNN_GRAD_CLIP": 0.25,
+                "GRAD_ACCUM": 1,
+                "GRAD_ACCUM_MODE": "window",
+                "FLAG": True,
+                "NET_E": "",
+                "NET_G": "",
+                "B_NET_D": True,
+                "SMOOTH": {
+                    "GAMMA1": 5.0,
+                    "GAMMA2": 5.0,
+                    "GAMMA3": 10.0,
+                    "LAMBDA": 1.0,
+                },
+                # G_NET_MIX: two z draws, one w code per refinement stage
+                "MIXING": False,
+                "CRITIC_ITER": 5,
+            },
+            "GAN": {
+                "DF_DIM": 64,
+                "GF_DIM": 128,
+                "Z_DIM": 100,
+                "W_DIM": 256,
+                "CONDITION_DIM": 100,
+                "R_NUM": 2,
+                "B_ATTENTION": True,
+                "B_DCGAN": False,
+                "M_NUM": 6,  # mapping-network depth
+                "INIT_Z_CONCAT": True,  # stage-0 input concat(c, z) or c alone
+            },
+            "TEXT": {
+                "CAPTIONS_PER_IMAGE": 10,
+                "EMBEDDING_DIM": 256,
+                "WORDS_NUM": 20,
+            },
+            "GEN2": {
+                "E_DIM": 128,
+                "C_DIM": 128,
+                "Z_DIM": 128,
+                "W_DIM": 256,
+                "A_DIM": 256,
+                "WORD_DIM": 768,
+                "MAX_LENGTH": 18,
+                "M_LAYERS": 8,
+                "M_USE_NORM": True,
+                "RESOLUTION": 128,
+                "RESOLUTION_INIT": 4,
+                "USE_ATTENTION": False,
+                "USE_NOISE": False,
+                "USE_PIXEL_NORM": False,
+                "USE_INSTANCE_NORM": True,
+                "USE_TRUNCATION": False,
+                "FMAP_BASE": 4096,
+                "FMAP_MAX": 256,
+                "WGAN": True,
+                "WGAN_LAMBDA": 10.0,
+                "BERT_VOCAB": 30522,
+                "BERT_HIDDEN": 768,
+                "BERT_LAYERS": 12,
+                "BERT_HEADS": 12,
+                "BERT_INTERMEDIATE": 3072,
+            },
+            "MODEL": {
+                "TEXT_ENCODER": "rnn",  # 'rnn' ('bert' is not ported yet)
+                "INCEPTION_INPUT": 299,
+                "IMAGE_LOADER": "pil",
+            },
+            # Accepted for preset compatibility; no effect in the port.
+            "JAX": {
+                "SEED": 100,
+                "PLATFORM": "",
+                "DTYPE": "float32",
+                "MESH_DATA": -1,
+                "MESH_MODEL": 1,
+                "SYNC_BATCHNORM": True,
+                "USE_PALLAS": False,
+                "REMAT_IMAGE_ENCODER": False,
+                "REMAT_IMAGE_ENCODER_MODE": "full",
+                "REMAT_GENERATOR": False,
+                "REMAT_GENERATOR_MODE": "stages",
+                "DAMSM_CHUNKS": 1,
+                "DAMSM_GRID_CHUNKS": 1,
+                "DAMSM_SIM_IMPL": "xla",
+                "DAMSM_SIM_TILE": 16,
+                "DAMSM_FOLD_SOFTMAX": False,
+                "UPBLOCK_FUSED": False,
+                "UPBLOCK_FUSED_IMPL": "phase3x3",
+                "BN_COMPACT": False,
+                "RGB_HEAD_PAD": 0,
+                "CONV_WGRAD_DOT": False,
+                "TRAIN_UNROLL": 1,
+                "LOSS_DTYPE": "float32",
+            },
+            "BENCH": {
+                "WARMUP_STEPS": 5,
+                "MEASURE_STEPS": 30,
+                "UNROLL": 1,
+            },
+        }
+    )
+
+
+def merge_into(src: Dict[str, Any], dst: ConfigDict, _path: str = "") -> None:
+    """Recursively merge ``src`` into ``dst``: unknown keys raise KeyError,
+    type mismatches raise ValueError; an int is accepted for a float."""
+    if src is None:
+        return
+    for k, v in src.items():
+        where = f"{_path}{k}"
+        if k not in dst:
+            raise KeyError(f"{where} is not a valid config key")
+        old = dst[k]
+        if isinstance(old, ConfigDict):
+            if not isinstance(v, dict):
+                raise ValueError(
+                    f"Type mismatch ({type(old)} vs. {type(v)}) for config key: {where}"
+                )
+            merge_into(v, old, where + ".")
+            continue
+        if isinstance(old, float) and isinstance(v, int) and not isinstance(v, bool):
+            v = float(v)
+        if (old is not None and v is not None and type(old) is not type(v)
+                # tri-state flag: False | True | "large"
+                and not (where == "JAX.BN_COMPACT"
+                         and isinstance(old, bool) and isinstance(v, str))):
+            raise ValueError(
+                f"Type mismatch ({type(old)} vs. {type(v)}) for config key: {where}"
+            )
+        if where == "JAX.BN_COMPACT" and isinstance(v, str) and v != "large":
+            raise ValueError(
+                f"JAX.BN_COMPACT must be a bool or the string 'large'; got {v!r}"
+            )
+        dst[k] = v
+
+
+def cfg_from_file(filename: str, base: ConfigDict | None = None) -> ConfigDict:
+    """Load a YAML preset and merge it over the defaults."""
+    cfg = base if base is not None else default_config()
+    with open(filename, "r") as f:
+        merge_into(yaml.safe_load(f), cfg)
+    return cfg
+
+
+def cfg_from_dict(d: Dict[str, Any], base: ConfigDict | None = None) -> ConfigDict:
+    cfg = base if base is not None else default_config()
+    merge_into(d, cfg)
+    return cfg
+
+
+def preset(name: str) -> ConfigDict:
+    """One of the presets shipped with the port, e.g. ``preset("eval_bird")``."""
+    return cfg_from_file(os.path.join(CONFIG_DIR, f"{name}.yml"))

@@ -1,0 +1,41 @@
+"""Image utilities: de-normalization to uint8 and a fast PNG encoder."""
+
+from __future__ import annotations
+
+import numpy as np
+from PIL import Image
+
+
+def to_uint8(img: np.ndarray) -> np.ndarray:
+    """[-1, 1] float -> uint8 as ``(im + 1) * 127.5``, clipped."""
+    img = np.asarray(img, dtype=np.float32)
+    img = (img + 1.0) * 127.5
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def png_bytes(a: np.ndarray, level: int = 1) -> bytes:
+    """Minimal RGB8 PNG encoder: filter 0 + one zlib IDAT (2-3x faster than
+    PIL's encoder at the same zlib level).  Anything but (H, W, 3) uint8
+    goes through PIL."""
+    import struct
+    import zlib
+
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+        import io
+
+        buf = io.BytesIO()
+        Image.fromarray(a).save(buf, format="PNG", compress_level=level)
+        return buf.getvalue()
+    h, w, _ = a.shape
+    raw = np.empty((h, w * 3 + 1), np.uint8)
+    raw[:, 0] = 0  # per-row filter byte: None
+    raw[:, 1:] = a.reshape(h, w * 3)
+    comp = zlib.compress(raw.tobytes(), level)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", comp) + chunk(b"IEND", b""))

@@ -1,0 +1,162 @@
+"""Carry the JAX package's weights into the port.
+
+The JAX package keeps its variables as nested dicts in Flax tree layout
+(``CANet_0/Dense_0/kernel`` ...).  These functions turn them, as numpy
+arrays, into ``state_dict``s of the port's :class:`GNet` and
+:class:`RNNEncoder`, whose module names are the reference G_NET /
+RNN_ENCODER state-dict keys.  The map is the inverse of the reference-key
+to Flax-path map that the JAX package uses to read reference checkpoints:
+
+* conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
+* BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
+* ``WordAttention_0/Dense_0/kernel`` -> the word projection ``att.conv_context``;
+* the RNN gates copy through unchanged (both sides use torch's layout).
+
+A Flax path with no port key raises, and the module's strict
+``load_state_dict`` raises on a port key that got no value.
+
+A weights file for serving is an ``.npz`` of these trees with keys joined
+by ``/``, named as the JAX package's train state names them:
+``g_ema/...`` (the generator's EMA parameters), ``g/batch_stats/...`` and
+``text/params/...``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_LIN = {"kernel": "weight", "bias": "bias"}
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+       "var": "running_var"}
+_RNN = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih",
+        "b_hh": "bias_hh"}
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dict -> {'a/b/c': array}."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, key + "/"))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """{'a/b/c': array} -> nested dict."""
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(v)
+    return tree
+
+
+def _index(name: str) -> int:
+    return int(name.rsplit("_", 1)[1])
+
+
+def _up_block_key(prefix: str, rest) -> str:
+    if rest[0] == "Conv3x3_0":
+        return f"{prefix}.1.weight"
+    if rest[0] == "BatchNorm_0":
+        return f"{prefix}.2.{_BN[rest[-1]]}"
+    raise KeyError(rest)
+
+
+def g_net_key(path: Tuple[str, ...]) -> str:
+    """Port key of one Flax GNet path, e.g. ('CANet_0', 'Dense_0', 'kernel')
+    -> 'ca_net.fc.weight'.  Raises KeyError for a path it does not know."""
+    top, leaf = path[0], path[-1]
+    try:
+        if top == "CANet_0":
+            return f"ca_net.fc.{_LIN[leaf]}"
+        if top == "MappingNet_0":
+            return f"mapping_net.fc.{_index(path[1])}.weight"
+        if top == "InitStageG_0":
+            if path[1] == "Dense_0":
+                return "h_net1.fc.0.weight"
+            if path[1] == "BatchNorm_0":
+                return f"h_net1.fc.1.{_BN[leaf]}"
+            if path[1].startswith("UpBlock_"):
+                k = _index(path[1]) + 1
+                return _up_block_key(f"h_net1.upsample{k}", path[2:])
+        if top.startswith("GetImageG_"):
+            return f"img_net{_index(top) + 1}.img.0.weight"
+        if top.startswith("NextStageG_"):
+            p = f"h_net{_index(top) + 2}"
+            sub = path[1]
+            if sub == "WordAttention_0":
+                return f"{p}.att.conv_context.weight"
+            if sub == "AdaINNorm_0":
+                return f"{p}.adain.style.{_LIN[leaf]}"
+            if sub.startswith("ResBlock_"):
+                r = f"{p}.residual.{_index(sub)}.block"
+                idx = {"Conv3x3_0": "0", "BatchNorm_0": "1",
+                       "Conv3x3_1": "3", "BatchNorm_1": "4"}[path[2]]
+                leaf_name = "weight" if idx in ("0", "3") else _BN[leaf]
+                return f"{r}.{idx}.{leaf_name}"
+            if sub == "UpBlock_0":
+                return _up_block_key(f"{p}.upsample", path[2:])
+    except (KeyError, IndexError, ValueError):
+        pass
+    raise KeyError(f"no port key for Flax GNet path {'/'.join(path)}")
+
+
+def flax_leaf_to_torch(path: Tuple[str, ...], value: np.ndarray) -> torch.Tensor:
+    """One Flax leaf in torch layout: a conv kernel HWIO -> OIHW, a dense
+    kernel (in, out) -> (out, in), anything else as it is."""
+    v = np.array(value, dtype=np.float32)  # a writable copy
+    if path[-1] == "kernel":
+        v = np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
+def g_net_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax GNet ``params`` + ``batch_stats`` -> the port's GNet state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats):
+        for key, value in flatten_tree(tree).items():
+            path = tuple(key.split("/"))
+            name = g_net_key(path)
+            if name in sd:
+                raise KeyError(f"two Flax paths map to {name}")
+            sd[name] = flax_leaf_to_torch(path, value)
+            if name.endswith(".running_mean"):
+                sd[name[: -len("running_mean")] + "num_batches_tracked"] = (
+                    torch.zeros((), dtype=torch.long))
+    return sd
+
+
+def rnn_encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax RNNEncoder ``params`` -> the port's RNNEncoder state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flatten_tree(params).items():
+        path = key.split("/")
+        if path == ["embedding"]:
+            name = "encoder.weight"
+        elif len(path) == 2 and path[0] in ("fwd", "bwd") and path[1] in _RNN:
+            suffix = "l0" if path[0] == "fwd" else "l0_reverse"
+            name = f"rnn.{_RNN[path[1]]}_{suffix}"
+        else:
+            raise KeyError(f"no port key for Flax RNNEncoder path {key}")
+        sd[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return sd
+
+
+def read_npz(path: str) -> Tuple[Dict, Dict, Dict]:
+    """A serving weights file -> (g_ema params, g batch_stats, text params)."""
+    with np.load(path) as z:
+        tree = unflatten_tree({k: z[k] for k in z.files})
+    try:
+        return tree["g_ema"], tree["g"]["batch_stats"], tree["text"]["params"]
+    except KeyError as e:
+        raise KeyError(f"{path} lacks the tree {e}; want keys g_ema/..., "
+                       "g/batch_stats/... and text/params/...") from e
