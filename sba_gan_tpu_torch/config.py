@@ -3,11 +3,17 @@
 The same schema and strict YAML merge as the JAX package's config (unknown
 keys raise ``KeyError``, type mismatches raise ``ValueError``), so every
 preset of the repository loads unchanged.  The port reads ``TREE``,
-``GAN``, ``TEXT``, ``TRAIN.MIXING``, ``RNN_TYPE`` and
-``MODEL.TEXT_ENCODER``.  The ``JAX`` and ``BENCH`` groups are accepted so
-that presets carrying them still load, and have no effect here: which
-word-attention implementation runs is decided by the device of the tensors
-(CUDA kernel on the card, plain PyTorch on the CPU), not by a key.
+``GAN``, ``TEXT``, ``TRAIN`` (batch size, encoder learning rate, the RNN
+gradient clip, ``SMOOTH`` gammas, ``MIXING``), ``RNN_TYPE``,
+``MODEL.TEXT_ENCODER`` / ``INCEPTION_INPUT``, and of the ``JAX`` group only
+``SEED`` and ``LOSS_DTYPE`` (float32; bfloat16 raises until the kernels
+have that path).  The other ``JAX`` keys and the ``BENCH`` group are
+accepted so that presets carrying them still load, and have no effect
+here.  In particular ``DAMSM_SIM_IMPL``, ``DAMSM_SIM_TILE``,
+``DAMSM_GRID_CHUNKS``, ``DAMSM_FOLD_SOFTMAX``, ``DAMSM_CHUNKS``,
+``USE_PALLAS`` and ``REMAT_IMAGE_ENCODER*`` are XLA/TPU levers that give
+the same values: which implementation runs is decided by the device of the
+tensors (CUDA kernel on the card, plain PyTorch on the CPU), not by a key.
 """
 
 from __future__ import annotations

@@ -1,1 +1,1 @@
-"""Caption handling."""
+"""Captions and training data."""

@@ -1,0 +1,87 @@
+"""DAMSM text-image matching losses (the JAX package's ``losses/damsm.py``).
+
+* :func:`sent_loss`: cosine scores of the global image codes against the
+  sentence codes, times gamma3, same-class pairs off the diagonal masked
+  out, cross-entropy in both directions.
+* :func:`words_loss`: the word-region similarity sim (B, B) of every (text,
+  image) pair through :func:`ops.damsm_sim.damsm_sim` (kernels K1-K3 on the
+  card, their plain versions on the CPU), then the same masking and the two
+  cross-entropies.  The kernels take any batch size.
+* :func:`own_image_attention`: the Eq. 8-9 attention of each text over its
+  own image, (B, T, R), for the attention dump of the pretrain CLI; the
+  losses never use it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from sba_gan_tpu_torch.ops.damsm_sim import damsm_sim
+
+NEG_INF = -1e9
+EPS = 1e-8
+
+
+def class_mask(class_ids: torch.Tensor) -> torch.Tensor:
+    """(B, B) bool: True where two different samples share a class."""
+    same = class_ids[:, None] == class_ids[None, :]
+    eye = torch.eye(class_ids.shape[0], dtype=torch.bool, device=class_ids.device)
+    return same & ~eye
+
+
+def masked_cross_entropy(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over rows; masked entries already hold NEG_INF."""
+    logz = torch.logsumexp(scores, dim=1)
+    picked = scores.gather(1, labels[:, None])[:, 0]
+    return (logz - picked).mean()
+
+
+def _mask_classes(scores, class_ids):
+    if class_ids is None:
+        return scores
+    return scores.masked_fill(class_mask(class_ids), NEG_INF)
+
+
+def sent_loss(cnn_code: torch.Tensor, rnn_code: torch.Tensor, labels: torch.Tensor,
+              class_ids: Optional[torch.Tensor], gamma3: float = 10.0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cnn_code, rnn_code (B, D); labels (B,).  Returns (image->text,
+    text->image) cross-entropies."""
+    cnn_code = cnn_code.float()
+    rnn_code = rnn_code.float()
+    scores = cnn_code @ rnn_code.T
+    cnn_norm = torch.linalg.vector_norm(cnn_code, dim=1, keepdim=True)
+    rnn_norm = torch.linalg.vector_norm(rnn_code, dim=1, keepdim=True)
+    norms = torch.clamp(cnn_norm @ rnn_norm.T, min=EPS)
+    scores = _mask_classes(scores / norms * gamma3, class_ids)
+    return masked_cross_entropy(scores, labels), masked_cross_entropy(scores.T, labels)
+
+
+def words_loss(img_features: torch.Tensor, words_emb: torch.Tensor,
+               labels: torch.Tensor, cap_lens: torch.Tensor,
+               class_ids: Optional[torch.Tensor], gamma1: float = 4.0,
+               gamma2: float = 5.0, gamma3: float = 10.0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """img_features (B, R, D) regions, words_emb (B, T, D), cap_lens (B,)
+    real word counts in [1, T] (any device), labels (B,).  Returns
+    (image->text, text->image) cross-entropies."""
+    sim = damsm_sim(words_emb.float(), img_features.float(), cap_lens, gamma1, gamma2)
+    similarities = _mask_classes(sim.T * gamma3, class_ids)  # [image, text]
+    return (masked_cross_entropy(similarities, labels),
+            masked_cross_entropy(similarities.T, labels))
+
+
+def own_image_attention(img_features: torch.Tensor, words_emb: torch.Tensor,
+                        cap_lens: torch.Tensor, gamma1: float = 4.0) -> torch.Tensor:
+    """(B, T, R): softmax over regions of gamma1 times the softmax over real
+    words of the scores of text i against its own image i (rows of padding
+    words come out uniform, as in the JAX package's dense grid)."""
+    words = words_emb.float()
+    scores = torch.einsum("itd,ird->itr", words, img_features.float())
+    t = words.shape[1]
+    lens = cap_lens.to(device=words.device, dtype=torch.long)
+    valid = torch.arange(t, device=words.device)[None, :] < lens[:, None]
+    scores = scores.masked_fill(~valid[:, :, None], NEG_INF)
+    return torch.softmax(gamma1 * torch.softmax(scores, dim=1), dim=2)

@@ -1,7 +1,7 @@
-"""Bi-directional LSTM/GRU text encoder (eval mode).
+"""Bi-directional LSTM/GRU text encoder.
 
-Embedding (ntoken, 300) -> one-layer bi-LSTM (or GRU) with nhidden/2 units
-per direction, run over packed sequences so that padded steps neither move
+Embedding (ntoken, 300) -> dropout 0.5 in train mode -> one-layer bi-LSTM
+(or GRU) with nhidden/2 units per direction, run over packed sequences so that padded steps neither move
 the state nor produce output.  Returns per-word outputs (zero at padded
 steps) and the sentence vector ``[h_fwd_final, h_bwd_final]``.  Module names
 follow the reference RNN_ENCODER (``encoder``, ``rnn``); the gate layout is
@@ -10,7 +10,7 @@ torch's, which the JAX package copies, so weights carry over unchanged.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -19,22 +19,46 @@ from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 class RNNEncoder(nn.Module):
     def __init__(self, ntoken: int, ninput: int = 300, nhidden: int = 256,
-                 rnn_type: str = "LSTM"):
+                 rnn_type: str = "LSTM", drop_prob: float = 0.5):
         super().__init__()
         if rnn_type not in ("LSTM", "GRU"):
             raise ValueError(f"rnn_type must be 'LSTM' or 'GRU', got {rnn_type!r}")
         self.rnn_type = rnn_type
+        self.drop_prob = drop_prob
         self.encoder = nn.Embedding(ntoken, ninput)
         rnn = nn.LSTM if rnn_type == "LSTM" else nn.GRU
         self.rnn = rnn(ninput, nhidden // 2, num_layers=1, batch_first=True,
                        bidirectional=True)
 
-    def forward(self, captions: torch.Tensor, cap_lens: torch.Tensor
+    def dropout_mask(self, captions: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:
+        """(B, T, ninput) bool keep-mask of the embedding dropout, drawn on
+        the CPU from ``generator`` (the same mask whatever the device)."""
+        shape = (*captions.shape, self.encoder.embedding_dim)
+        keep = torch.rand(shape, generator=generator) >= self.drop_prob
+        return keep.to(captions.device)
+
+    def forward(self, captions: torch.Tensor, cap_lens: torch.Tensor,
+                keep_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """captions (B, T) int64 ids (0 = pad); cap_lens (B,) with every
-        length >= 1.  Returns words_emb (B, T, nhidden), sent_emb (B, nhidden)."""
+        length >= 1.  Returns words_emb (B, T, nhidden), sent_emb (B, nhidden).
+
+        In train mode the embedding goes through dropout: kept entries are
+        scaled by 1 / (1 - drop_prob), as flax's ``nn.Dropout`` does, under
+        ``keep_mask`` (B, T, ninput) bool if given, else a mask drawn from
+        ``generator``."""
         t = captions.shape[1]
         emb = self.encoder(captions)
+        if self.training and self.drop_prob > 0:
+            if keep_mask is None:
+                if generator is None:
+                    raise ValueError("train mode needs a keep_mask or a "
+                                     "torch.Generator for the dropout")
+                keep_mask = self.dropout_mask(captions, generator)
+            emb = torch.where(keep_mask, emb / (1.0 - self.drop_prob),
+                              torch.zeros_like(emb))
         packed = pack_padded_sequence(emb, cap_lens.cpu().long(),
                                       batch_first=True, enforce_sorted=False)
         out, state = self.rnn(packed)

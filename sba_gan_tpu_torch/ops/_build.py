@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
-SOURCES = {"word_attention": "word_attention.cu"}
+SOURCES = {"word_attention": "word_attention.cu", "damsm_sim": "damsm_sim.cu"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -2,9 +2,9 @@
 
 The JAX package keeps its variables as nested dicts in Flax tree layout
 (``CANet_0/Dense_0/kernel`` ...).  These functions turn them, as numpy
-arrays, into ``state_dict``s of the port's :class:`GNet` and
-:class:`RNNEncoder`, whose module names are the reference G_NET /
-RNN_ENCODER state-dict keys.  The map is the inverse of the reference-key
+arrays, into ``state_dict``s of the port's :class:`GNet`,
+:class:`RNNEncoder` and :class:`CNNEncoder`, whose module names are the
+reference G_NET / RNN_ENCODER / torchvision Inception-v3 state-dict keys.  The map is the inverse of the reference-key
 to Flax-path map that the JAX package uses to read reference checkpoints:
 
 * conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
@@ -148,6 +148,33 @@ def rnn_encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"no port key for Flax RNNEncoder path {key}")
         sd[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return sd
+
+
+def cnn_encoder_state_dict(params: Mapping, batch_stats: Mapping
+                           ) -> Dict[str, torch.Tensor]:
+    """Flax CNNEncoder ``params`` + ``batch_stats`` -> the port's CNNEncoder
+    state_dict: ``backbone/<module>/.../conv/kernel`` -> ``<module>....conv.
+    weight`` (HWIO -> OIHW), ``bn`` scale/bias/mean/var -> weight/bias/
+    running_mean/running_var, ``emb_features`` (1 x 1 conv, no bias) and
+    ``emb_cnn_code`` (dense, transposed) as they are named.  The inverse of
+    the JAX package's ``port_cnn_encoder``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats):
+        for key, value in flatten_tree(tree).items():
+            path = tuple(key.split("/"))
+            if path[0] in ("emb_features", "emb_cnn_code") and len(path) == 2:
+                name = f"{path[0]}.{_LIN[path[1]]}"
+            elif path[0] == "backbone" and path[-2] == "conv" and path[-1] == "kernel":
+                name = ".".join(path[1:-1]) + ".weight"
+            elif path[0] == "backbone" and path[-2] == "bn" and path[-1] in _BN:
+                name = ".".join(path[1:-1]) + "." + _BN[path[-1]]
+            else:
+                raise KeyError(f"no port key for Flax CNNEncoder path {key}")
+            sd[name] = flax_leaf_to_torch(path, value)
+            if name.endswith(".running_mean"):
+                sd[name[: -len("running_mean")] + "num_batches_tracked"] = (
+                    torch.zeros((), dtype=torch.long))
     return sd
 
 

@@ -6,12 +6,16 @@ machine with PyTorch and the CUDA toolkit alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Tolerance rtol 1e-5, atol 1e-5: float32 on both sides, sums in another order.
+Tolerance rtol 1e-5, atol 1e-5 for word attention: float32 on both sides,
+sums in another order.  The DAMSM kernels (K1-K3) sum over D and R through
+three softmaxes: rtol 1e-4 / atol 1e-4 on sim, and rtol 1e-3 / atol 1e-3
+times the largest entry on the gradients.
 """
 
 import pytest
 import torch
 
+from sba_gan_tpu_torch.ops import damsm_sim as ds
 from sba_gan_tpu_torch.ops import word_attention as wa
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -69,3 +73,76 @@ def test_word_attention_refuses_what_it_does_not_take(cuda):
         wa.word_attention(q33, s33, None)
     with pytest.raises(RuntimeError):
         wa.word_attention(q.requires_grad_(), s, pad)
+
+
+def _damsm_inputs(cuda, b, t, r, d, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    words = torch.randn((b, t, d), generator=gen).to(cuda)
+    img = torch.randn((b, r, d), generator=gen).to(cuda)
+    lens = torch.randint(1, t + 1, (b,), generator=gen)
+    lens[0], lens[-1] = 1, t
+    g = torch.randn((b, b), generator=gen).to(cuda)
+    return words, img, lens, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,r,d", [
+    (32, 20, 289, 256),  # DAMSM pretrain
+    (30, 20, 289, 256),  # a batch no tile divides
+    (5, 32, 17, 8),  # the largest T the kernels hold, small R and D
+    (3, 1, 4, 4),
+    (40, 7, 100, 36),  # D that does not divide the block
+])
+def test_damsm_kernels_match_plain(cuda, b, t, r, d):
+    words, img, lens, g = _damsm_inputs(cuda, b, t, r, d)
+    counts = [f.launches for f in (ds.damsm_sim_fwd, ds.damsm_sim_dimg,
+                                   ds.damsm_sim_dwords)]
+    sim = ds.damsm_sim_fwd(words, img, lens)
+    d_img = ds.damsm_sim_dimg(words, img, lens, g)
+    d_words = ds.damsm_sim_dwords(words, img, lens, g)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (ds.damsm_sim_fwd, ds.damsm_sim_dimg,
+                                 ds.damsm_sim_dwords)] == [c + 1 for c in counts]
+    torch.testing.assert_close(sim, ds.damsm_sim_plain(words, img, lens),
+                               rtol=1e-4, atol=1e-4)
+    for got, want in ((d_img, ds.damsm_sim_dimg_plain(words, img, lens, g)),
+                      (d_words, ds.damsm_sim_dwords_plain(words, img, lens, g))):
+        torch.testing.assert_close(got, want, rtol=1e-3,
+                                   atol=1e-3 * want.abs().max().item())
+    pad = (torch.arange(t)[None, :] >= lens[:, None]).to(cuda)
+    assert torch.all(d_words[pad] == 0)
+
+
+@pytest.mark.cuda
+def test_damsm_function_routes_backward(cuda):
+    words, img, lens, g = _damsm_inputs(cuda, 6, 5, 17, 8)
+    before = (ds.damsm_sim_dimg.launches, ds.damsm_sim_dwords.launches)
+    x = img.clone().requires_grad_()
+    ds.damsm_sim(words, x, lens).backward(g)  # words detached: K2 only
+    assert (ds.damsm_sim_dimg.launches, ds.damsm_sim_dwords.launches) == (
+        before[0] + 1, before[1])
+    want = ds.damsm_sim_dimg_plain(words, img, lens, g)
+    torch.testing.assert_close(x.grad, want, rtol=1e-3,
+                               atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_damsm_wrappers_refuse_what_they_do_not_take(cuda):
+    words, img, lens, g = _damsm_inputs(cuda, 2, 4, 9, 8)
+    with pytest.raises(TypeError):
+        ds.damsm_sim_fwd(words.double(), img.double(), lens)
+    with pytest.raises(ValueError):
+        ds.damsm_sim_fwd(words, img.cpu(), lens)
+    with pytest.raises(ValueError):
+        ds.damsm_sim_fwd(words, img, torch.tensor([0, 3]))
+    with pytest.raises(ValueError):
+        ds.damsm_sim_fwd(words[:, :, :6].contiguous(), img[:, :, :6].contiguous(), lens)
+    w33, x33, l33, _ = _damsm_inputs(cuda, 2, 33, 9, 8)
+    with pytest.raises(ValueError):
+        ds.damsm_sim_fwd(w33, x33, l33)
+    # T 32 against 4000 regions: two (T, R) score matrices overflow shared memory
+    w, x, lw, gw = _damsm_inputs(cuda, 2, 32, 4000, 8)
+    with pytest.raises(RuntimeError, match="does not take this shape"):
+        ds.damsm_sim_fwd(w, x, lw)
+    with pytest.raises(RuntimeError, match="does not take this shape"):
+        ds.damsm_sim_dimg(w, x, lw, gw)

@@ -10,6 +10,7 @@ rtol 1e-4, as for the generator alone (tests/test_torch_generator.py).
 
 import io
 import json
+import os
 import subprocess
 import sys
 from types import SimpleNamespace
@@ -22,6 +23,7 @@ import pytest
 from _torch_parity import jax_generator_and_vars, tiny_cfgs
 from sba_gan_tpu.models.text_rnn import RNNEncoder as JaxRNNEncoder
 from sba_gan_tpu.train.gan import GANModels, make_sample_fn
+from sba_gan_tpu_torch import pretrain
 from sba_gan_tpu_torch.data.vocab import synthetic_vocab
 from sba_gan_tpu_torch.serving.app import build_service, make_wsgi_app, main
 from sba_gan_tpu_torch.train.sample import Sampler
@@ -136,19 +138,20 @@ def test_routes(client):
 
 
 def test_port_imports_no_jax():
-    modules = ["sba_gan_tpu_torch"] + [
-        f"sba_gan_tpu_torch.{m}" for m in (
-            "config", "data.vocab", "utils.image", "utils.viz", "utils.platform",
-            "utils.weights", "ops._build", "ops.word_attention", "models.blocks",
-            "models.attention", "models.text_rnn", "models.generator",
-            "train.sample", "serving.app")]
-    code = ("import importlib, sys\n"
-            f"for m in {modules!r}: importlib.import_module(m)\n"
+    """Every module of the port, found by walking the package, imports
+    nothing of JAX, flax or the JAX package (nor does chip_smoke.py)."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import sba_gan_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.')]\n"
+            "for m in names: importlib.import_module(m)\n"
+            "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'sba_gan_tpu'))\n"
-            "print(bad); sys.exit(1 if bad else 0)\n")
+            "print(len(names), bad); sys.exit(1 if bad or len(names) < 20 else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=300)
+                       text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert r.returncode == 0, r.stdout + r.stderr
 
 
@@ -163,3 +166,5 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--synthetic", "--n_words", str(N_WORDS), "--store",
               str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pretrain.main(["--synthetic", "--output_dir", str(tmp_path / "pretrain")])

@@ -53,3 +53,39 @@ def test_unknown_flax_path_raises():
     with pytest.raises(KeyError):
         W.rnn_encoder_state_dict({"embedding": np.zeros((3, 2)),
                                   "extra": {"w_ih": np.zeros(1)}})
+
+
+@pytest.mark.parametrize("rnn_type", ["LSTM", "GRU"])
+def test_train_mode_dropout_matches_jax(rnn_type):
+    """Train mode: flax's embedding dropout, its mask recovered from the JAX
+    side (the Dropout_0 output is zero exactly where a unit was dropped)
+    and handed to the port."""
+    rng = np.random.default_rng(2)
+    lens = np.array([6, 1, 4, 3], np.int64)
+    captions = np.zeros((len(lens), T), np.int64)
+    for i, n in enumerate(lens):
+        captions[i, :n] = rng.integers(1, NTOKEN, n)
+    jenc = JaxRNNEncoder(ntoken=NTOKEN, ninput=NINPUT, nhidden=NHIDDEN,
+                         rnn_type=rnn_type)
+    key = jax.random.PRNGKey(5)
+    args = (jnp.asarray(captions, jnp.int32), jnp.asarray(lens, jnp.int32))
+    variables = jenc.init({"params": key, "dropout": key}, *args, train=False)
+    (words_j, sent_j), inter = jenc.apply(
+        variables, *args, train=True, rngs={"dropout": jax.random.PRNGKey(6)},
+        capture_intermediates=True)
+    keep = np.asarray(inter["intermediates"]["Dropout_0"]["__call__"][0]) != 0
+
+    enc = RNNEncoder(NTOKEN, ninput=NINPUT, nhidden=NHIDDEN, rnn_type=rnn_type)
+    enc.load_state_dict(W.rnn_encoder_state_dict(variables["params"]))
+    enc.train()
+    with torch.no_grad():
+        words_t, sent_t = enc(torch.from_numpy(captions), torch.from_numpy(lens),
+                              keep_mask=torch.from_numpy(keep))
+    np.testing.assert_allclose(words_t.numpy(), np.asarray(words_j), atol=2e-5)
+    np.testing.assert_allclose(sent_t.numpy(), np.asarray(sent_j), atol=2e-5)
+    # a mask drawn from a generator: about half kept, the same for one seed
+    a = enc.dropout_mask(torch.from_numpy(captions), torch.Generator().manual_seed(1))
+    b = enc.dropout_mask(torch.from_numpy(captions), torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and 0.4 < a.float().mean().item() < 0.6
+    with pytest.raises(ValueError):
+        enc(torch.from_numpy(captions), torch.from_numpy(lens))
