@@ -16,7 +16,9 @@ and nothing of JAX.  Phases, each printing one line or more:
 4. DAMSM kernels: the similarity kernels K1-K3 (forward, image gradient,
    word gradient) against their plain versions in the same way, at B 32 T 20 (pretrain), B 128 T 18 (the GAN step's shape) and
    a ragged B 30, R 289, D 256, captions of 1 to T words, with a random
-   cotangent; no single library call computes them (``library_ms`` null);
+   cotangent; no single library call computes them (``library_ms`` null).
+   K3 runs its products on the tensor cores in 3xTF32: its row also gives
+   the bound of those products at the TF32 rate (``bound_tc_ms``);
 5. slice: the full-width ``eval_bird`` generator (vocabulary 5450, random
    weights from a seed, random BatchNorm statistics) on the card against
    the same models on the CPU, same captions and noise, TF32 off;
@@ -59,6 +61,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 SEED = 0
 N_WORDS = 5450  # the CUB vocabulary
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -164,7 +167,7 @@ def word_attention_case(b, ql, t, d, lens, seed):
                                    **KERNEL_TOL)
     err = max((ctx - ctx_p).abs().max().item(), (att - att_p).abs().max().item())
 
-    def library():
+    def library():  # three calls: no single PyTorch call returns both ctx and P
         p = torch.softmax(torch.baddbmm(bias[:, None, :], q, s.transpose(1, 2)), -1)
         return torch.bmm(p, s)
 
@@ -280,6 +283,9 @@ def damsm_case(b, t, seed, gamma1=4.0, gamma2=5.0):
             "eager_ms": eager_ms(kernel, iters=5),
             "plain_eager_ms": eager_ms(plain, iters=5),
         }
+        if name == "damsm_sim_dwords":  # 3xTF32: each product three times
+            rows[name]["bound_tc_ms"] = max(bytes_ms,
+                                            3 * flops / TF32_FLOPS_PER_S * 1e3)
     return rows
 
 
@@ -564,7 +570,7 @@ DAMSM_KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
                       "sba_gan_tpu/ops/damsm_sim.py:157"),
     "damsm_sim_dimg": ("sba_gan_tpu_torch/ops/csrc/damsm_sim.cu",
                        "sba_gan_tpu/ops/damsm_sim.py:188"),
-    "damsm_sim_dwords": ("sba_gan_tpu_torch/ops/csrc/damsm_sim.cu",
+    "damsm_sim_dwords": ("sba_gan_tpu_torch/ops/csrc/damsm_dwords.cu",
                          "sba_gan_tpu/ops/damsm_sim.py:214"),
 }
 PRETRAIN_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -617,8 +623,11 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row["shape"], "eager_ms": row["eager_ms"],
             "gan_step": {k: gan[k] for k in ("shape", "kernel_ms", "plain_ms",
-                                             "bound_ms", "bound_by", "eager_ms")},
+                                             "bound_ms", "bound_by", "eager_ms",
+                                             "bound_tc_ms") if k in gan},
         })
+        if "bound_tc_ms" in row:
+            kernels[-1]["bound_tc_ms"] = row["bound_tc_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

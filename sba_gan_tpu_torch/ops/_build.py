@@ -3,9 +3,10 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C interface.  At first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the root of the checkout, named by a hash of its
-source and flags, and loaded with ``ctypes``.  A library that exists is
-reused, so a source change gives a new build.  :func:`build` starts one
-``nvcc`` per missing library, all at once, and waits for them together.
+source, the headers of ``csrc/`` and the flags, and loaded with ``ctypes``.
+A library that exists is reused, so a source change gives a new build.
+:func:`build` starts one ``nvcc`` per missing library, all at once, and
+waits for them together.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
-SOURCES = {"word_attention": "word_attention.cu", "damsm_sim": "damsm_sim.cu"}
+SOURCES = {"word_attention": "word_attention.cu", "damsm_sim": "damsm_sim.cu",
+           "damsm_dwords": "damsm_dwords.cu"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -37,9 +39,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

@@ -1,9 +1,13 @@
-// DAMSM word-region similarity, forward and both gradients, for Hopper
-// (sm_90a).  Three kernels:
+// DAMSM word-region similarity, forward and image gradient, for Hopper
+// (sm_90a).  Two kernels, both still the first design:
 //
 //   K1 damsm_sim_fwd    replaces sba_gan_tpu/ops/damsm_sim.py:_fwd_kernel
 //   K2 damsm_sim_dimg   replaces sba_gan_tpu/ops/damsm_sim.py:_dimg_kernel
-//   K3 damsm_sim_dwords replaces sba_gan_tpu/ops/damsm_sim.py:_dwords_kernel
+//
+// The word gradient (K3, _dwords_kernel) has a design of its own on the
+// tensor cores, in damsm_dwords.cu.  What the two files share (the row
+// scalars, warp reductions, the split sum, the shared-memory cap) is in
+// damsm_common.cuh.
 //
 // For text i (words W_i, T x D, of which the first L_i are real) and image j
 // (regions X_j, R x D), with gamma1 g1 and gamma2 g2:
@@ -19,23 +23,23 @@
 // both softmaxes, which gives them exactly zero weight in Eq. 8 and Eq. 10
 // and zero gradient, so the kernels skip them and write zero gradient there.
 //
-// K2 returns d_img[j] = sum_i g[i, j] d sim[i, j] / d X_j and K3
-// d_words[i] = sum_j g[i, j] d sim[i, j] / d W_i.  Both recompute the pair's
-// forward and run the backward of _pair_backward (damsm_sim.py:90-151).
+// K2 returns d_img[j] = sum_i g[i, j] d sim[i, j] / d X_j.  It recomputes
+// the pair's forward and runs the backward of _pair_backward
+// (damsm_sim.py:90-151).
 //
 // What bounds them on this card: operations.  A pair costs 4 L R D flops
 // forward (S, C); K2 recomputes them and adds dA2, A2^T dC and dS^T W, 10
-// L R D in all, and K3 adds dA2 and dS X, 8 L R D; against (L + R) D * 4
-// bytes of input, 19 to 47 flops a byte at L 20, R 289, D 256 (each pair's
+// L R D in all; against (L + R) D * 4 bytes of input, 19 to 47 flops a
+// byte at L 20, R 289, D 256 (each pair's
 // inputs read once), and at B 32 all of img (9.5 MB)
 // stays in L2.  The products run in float32 on the CUDA cores (67 TFLOP/s),
 // computed here, with no library call.
 //
 // Design (simple and right first):
-//   * one block of 256 threads per pair (K1), per (image, range of texts)
-//     (K2) or per (text, range of images) (K3).  K2 and K3 write one partial
-//     sum per range into scratch that only the block owns, and a second
-//     kernel sums the ranges in a fixed order: deterministic, no atomics.
+//   * one block of 256 threads per pair (K1) or per (image, range of
+//     texts) (K2).  K2 writes one partial sum per range into scratch that
+//     only the block owns, and a second kernel sums the ranges in a fixed
+//     order: deterministic, no atomics.
 //   * W_i, C (later dC), and two (L x R) matrices (A1/A2 and A2/dA...) sit in
 //     shared memory; X_j does not fit (289 x 256 x 4 = 296 KB) and streams
 //     through shared memory in chunks of 16 regions, once per product.
@@ -43,25 +47,21 @@
 //     stay aligned and a warp's rows fall in different banks.
 //   * A2 is not kept beside A1 in the backward: it is recomputed from A1 and
 //     the per-word row max and sum of Eq. 9, with the same rounding.
-// Making them fast (tensor cores via wgmma, TMA loads) is later work.
+// Making them fast (the tensor-core product core of damsm_dwords.cu) is
+// later work.
 
 #include <cfloat>
 #include <cstddef>
 #include <cuda_runtime.h>
+
+#include "damsm_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 16;   // regions of X staged in shared memory at a time
-constexpr int kMaxT = 32;    // words held per text
-constexpr int kMaxD = 256;   // embedding width
 constexpr int kRowVals = 12; // per-word scalars kept in shared memory
-constexpr float kEps = 1e-8f;
-constexpr size_t kSmemLimit = 232448;
-
-// per-word scalars, each an array of kMaxT floats
-enum Row { kM2 = 0, kS2, kNum, kWn, kCn, kRs, kDNum, kFc, kFw, kInner2, kLse, kRowCount };
 static_assert(kRowCount <= kRowVals, "row scalars");
 
 __host__ __device__ inline int pad_d(int d) { return d + 4; }
@@ -95,22 +95,6 @@ __device__ Smem carve(float* base, int t, int r, int d) {
   s.row = s.x + kChunk * s.dp;
   return s;
 }
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ inline float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// The Eq. 9 logit.  __fmul_rn keeps the compiler from fusing it into an FMA,
-// so the backward's recomputation of A2 rounds exactly as the forward did.
-__device__ inline float region_logit(float g1, float a1) { return __fmul_rn(g1, a1); }
 
 // Zero the padding columns R..Rp-1 of p and q: the float4 reads of the
 // context and d_img passes cover them, against staged rows that are zero.
@@ -322,14 +306,12 @@ __device__ void pair_forward(const Smem& s, const float* __restrict__ xg, int l,
   __syncthreads();
 }
 
-// The pair backward for cotangent g of sim[i, j], after pair_forward.
-// kWords: dw[k] (thread's (t, d) items as in context_pass) gets dsim/dW_i.
-// kImg:   dx (R x D in global memory, owned by the block) gets dsim/dX_j,
-//         added (first == false) or written (first == true).
-template <bool kWords, bool kImg>
+// The image side of the pair backward for cotangent g of sim[i, j], after
+// pair_forward: dx (R x D in global memory, owned by the block) gets
+// dsim/dX_j, added (first == false) or written (first == true).
 __device__ void pair_backward(const Smem& s, const float* __restrict__ xg, int l,
                               int r, int d, float g1, float g2, float g,
-                              float (&dw)[kMaxT], float* __restrict__ dx, bool first) {
+                              float* __restrict__ dx, bool first) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   float* row = s.row;
   const int groups = blockDim.x / d;
@@ -352,7 +334,7 @@ __device__ void pair_backward(const Smem& s, const float* __restrict__ xg, int l
   }
   __syncthreads();
 
-  // dC = d_num W + fc C (into s.c); dW += d_num C + fw W
+  // dC = d_num W + fc C (into s.c)
   if (tg < groups) {
 #pragma unroll
     for (int k = 0; k < kMaxT; ++k) {
@@ -360,7 +342,6 @@ __device__ void pair_backward(const Smem& s, const float* __restrict__ xg, int l
       if (t < l) {
         const float dn = row[kDNum * kMaxT + t];
         const float c = s.c[t * s.dp + dd], w = s.w[t * s.dp + dd];
-        if (kWords) dw[k] += dn * c + row[kFw * kMaxT + t] * w;
         s.c[t * s.dp + dd] = dn * w + row[kFc * kMaxT + t] * c;
       }
     }
@@ -394,19 +375,15 @@ __device__ void pair_backward(const Smem& s, const float* __restrict__ xg, int l
     for (int t = 0; t < l; ++t) {
       const float a1 = s.p[t * s.rp + rr];
       s.q[t * s.rp + rr] = a1 * (s.q[t * s.rp + rr] - inner1);
-      if (kImg)
-        s.p[t * s.rp + rr] = expf(region_logit(g1, a1) - row[kM2 * kMaxT + t]) /
-                             row[kS2 * kMaxT + t];
+      s.p[t * s.rp + rr] = expf(region_logit(g1, a1) - row[kM2 * kMaxT + t]) /
+                           row[kS2 * kMaxT + t];
     }
   }
   __syncthreads();
 
-  // dW += dS X
-  if (kWords) context_pass(s, s.q, dw, xg, l, r, d);
-
   // dX = A2^T dC + dS^T W: thread (d, rg) takes regions 4 rg .. 4 rg + 3,
   // then every 4 G-th.
-  if (kImg && tg < groups) {
+  if (tg < groups) {
     for (int r4 = 4 * tg; r4 < r; r4 += 4 * groups) {
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
       for (int t = 0; t < l; ++t) {
@@ -457,7 +434,6 @@ __global__ void __launch_bounds__(kThreads) damsm_sim_dimg_kernel(
   const int j = blockIdx.x, split = blockIdx.y;
   const float* xg = img + static_cast<size_t>(j) * r * d;
   float* dx = part + (static_cast<size_t>(split) * bj + j) * r * d;
-  float unused[kMaxT];
   zero_pad_columns(s, t_len, r);
   const int i0 = split * chunk, i1 = min(b, i0 + chunk);
   for (int i = i0; i < i1; ++i) {
@@ -465,56 +441,8 @@ __global__ void __launch_bounds__(kThreads) damsm_sim_dimg_kernel(
     __syncthreads();  // s.w of the previous text is no longer read
     load_words(s, words + static_cast<size_t>(i) * t_len * d, l, d);
     pair_forward(s, xg, l, r, d, g1, g2);
-    pair_backward<false, true>(s, xg, l, r, d, g1, g2,
-                               grad[static_cast<size_t>(i) * bj + j], unused, dx,
-                               i == i0);
-  }
-}
-
-// K3: one block per (text i, range of images); part[split][i] (T x D), rows
-// t >= L_i zero.
-__global__ void __launch_bounds__(kThreads) damsm_sim_dwords_kernel(
-    const float* __restrict__ words, const float* __restrict__ img,
-    const int* __restrict__ lens, const float* __restrict__ grad,
-    float* __restrict__ part, int b, int bj, int t_len, int r, int d, int chunk,
-    float g1, float g2) {
-  extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4), t_len, r, d);
-  const int i = blockIdx.x, split = blockIdx.y;
-  const int l = lens[i];
-  float dw[kMaxT];
-#pragma unroll
-  for (int k = 0; k < kMaxT; ++k) dw[k] = 0.f;
-  zero_pad_columns(s, t_len, r);
-  load_words(s, words + static_cast<size_t>(i) * t_len * d, l, d);
-  const int j0 = split * chunk, j1 = min(bj, j0 + chunk);
-  for (int j = j0; j < j1; ++j) {
-    const float* xg = img + static_cast<size_t>(j) * r * d;
-    pair_forward(s, xg, l, r, d, g1, g2);
-    pair_backward<true, false>(s, xg, l, r, d, g1, g2,
-                               grad[static_cast<size_t>(i) * bj + j], dw, nullptr,
-                               false);
-  }
-  const int groups = blockDim.x / d;
-  const int dd = threadIdx.x % d, tg = threadIdx.x / d;
-  if (tg < groups) {
-    float* out = part + (static_cast<size_t>(split) * b + i) * t_len * d;
-#pragma unroll
-    for (int k = 0; k < kMaxT; ++k) {
-      const int t = tg + groups * k;
-      if (t < t_len) out[static_cast<size_t>(t) * d + dd] = t < l ? dw[k] : 0.f;
-    }
-  }
-}
-
-// out[n] = sum over splits of part[split][n], in split order.
-__global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ out, int splits, size_t n) {
-  for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; k < n;
-       k += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float v = 0.f;
-    for (int sp = 0; sp < splits; ++sp) v += part[sp * n + k];
-    out[k] = v;
+    pair_backward(s, xg, l, r, d, g1, g2, grad[static_cast<size_t>(i) * bj + j], dx,
+                  i == i0);
   }
 }
 
@@ -524,31 +452,7 @@ bool shape_ok(int b, int bj, int t_len, int r, int d) {
          smem_bytes(t_len, r, d) <= kSmemLimit;
 }
 
-// Raise a kernel's dynamic shared-memory cap once per device and size, so a
-// launch inside CUDA-graph capture makes no attribute call after warm-up.
-constexpr int kMaxDevices = 64;
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t (&granted)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev < 0 || dev >= kMaxDevices) return err;
-  if (granted[dev] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess) granted[dev] = bytes;
-  return err;
-}
-
-size_t fwd_granted[kMaxDevices], dimg_granted[kMaxDevices], dwords_granted[kMaxDevices];
-
-cudaError_t sum_splits(const float* part, float* out, int splits, size_t n,
-                       cudaStream_t stream) {
-  const int blocks = static_cast<int>((n + kThreads - 1) / kThreads);
-  sum_splits_kernel<<<blocks < 4096 ? blocks : 4096, kThreads, 0, stream>>>(
-      part, out, splits, n);
-  return cudaGetLastError();
-}
+size_t fwd_granted[kMaxDevices], dimg_granted[kMaxDevices];
 
 }  // namespace
 
@@ -588,25 +492,4 @@ extern "C" int damsm_sim_dimg(const float* words, const float* img, const int* l
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(
       sum_splits(part, d_img, splits, static_cast<size_t>(bj) * r * d, stream));
-}
-
-// part: scratch of splits * B * T * D floats, splits = ceil(Bj / chunk); when
-// splits == 1 it may be d_words itself.  d_words (B, T, D).
-extern "C" int damsm_sim_dwords(const float* words, const float* img, const int* lens,
-                                const float* grad, float* part, float* d_words, int b,
-                                int bj, int t_len, int r, int d, int chunk, float g1,
-                                float g2, cudaStream_t stream) {
-  if (!shape_ok(b, bj, t_len, r, d) || chunk < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int splits = (bj + chunk - 1) / chunk;
-  if (splits > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_bytes(t_len, r, d);
-  cudaError_t err = allow_smem(damsm_sim_dwords_kernel, bytes, dwords_granted);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  damsm_sim_dwords_kernel<<<dim3(b, splits), kThreads, bytes, stream>>>(
-      words, img, lens, grad, part, b, bj, t_len, r, d, chunk, g1, g2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(
-      sum_splits(part, d_words, splits, static_cast<size_t>(b) * t_len * d, stream));
 }

@@ -10,12 +10,13 @@ For text i (words W_i, (T, D), the first ``cap_lens[i]`` real) and image j
     C   = A2 X_j                          (T x D) region context per word
     sim[i, j] = logsumexp over real words of g2 cos(W_i[t], C[t])   (Eq. 10)
 
-Three kernels, hand-written in ``csrc/damsm_sim.cu`` (the port of the JAX
-package's Pallas ``_fwd_kernel``, ``_dimg_kernel`` and ``_dwords_kernel``):
+Three hand-written kernels, the port of the JAX package's Pallas
+``_fwd_kernel``, ``_dimg_kernel`` and ``_dwords_kernel``:
 
-* :func:`damsm_sim_fwd`    K1, sim (B, Bj);
-* :func:`damsm_sim_dimg`   K2, d_img (Bj, R, D) for a cotangent g (B, Bj);
-* :func:`damsm_sim_dwords` K3, d_words (B, T, D).
+* :func:`damsm_sim_fwd`    K1, sim (B, Bj)                    ``csrc/damsm_sim.cu``;
+* :func:`damsm_sim_dimg`   K2, d_img (Bj, R, D) for a cotangent g (B, Bj), same file;
+* :func:`damsm_sim_dwords` K3, d_words (B, T, D), on the tensor cores,
+  ``csrc/damsm_dwords.cu``.
 
 Each wrapper sends CUDA tensors to its kernel (counting the launch in its
 ``launches``) or raises, and CPU tensors to its plain version
@@ -29,6 +30,7 @@ the words do.  The kernels take any B (no tile has to divide it).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -36,9 +38,8 @@ import torch
 
 NEG_INF = -1e9
 EPS = 1e-8
-MAX_T = 32  # what the kernels hold (csrc/damsm_sim.cu kMaxT, kMaxD)
+MAX_T = 32  # what the kernels hold (kMaxT, kMaxD in csrc/damsm_*.cu)
 MAX_D = 256
-_TARGET_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
 _CUDA_ERROR_INVALID_VALUE = 1  # what the C entry points return for a shape
 
 
@@ -128,9 +129,21 @@ def _library() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.damsm_sim_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [f32] * 2 + [ptr]
         lib.damsm_sim_fwd.restype = i32
-        for fn in (lib.damsm_sim_dimg, lib.damsm_sim_dwords):
-            fn.argtypes = [ptr] * 6 + [i32] * 6 + [f32] * 2 + [ptr]
-            fn.restype = i32
+        lib.damsm_sim_dimg.argtypes = [ptr] * 6 + [i32] * 6 + [f32] * 2 + [ptr]
+        lib.damsm_sim_dimg.restype = i32
+    return lib
+
+
+def _dwords_library() -> ctypes.CDLL:
+    from sba_gan_tpu_torch.ops import _build
+
+    lib = _build.load("damsm_dwords")
+    if lib.damsm_sim_dwords.argtypes is None:
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.damsm_sim_dwords.argtypes = [ptr] * 6 + [i32] * 7 + [f32] * 2 + [ptr]
+        lib.damsm_sim_dwords.restype = i32
+        lib.damsm_dwords_texts.argtypes = [i32] * 4
+        lib.damsm_dwords_texts.restype = i32
     return lib
 
 
@@ -179,15 +192,21 @@ def _stream(x) -> int:
 def _raise_on(err: int, name: str) -> None:
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise RuntimeError(f"{name}: CUDA error 1, invalid value: the kernel does "
-                           "not take this shape (shape_ok in csrc/damsm_sim.cu: "
-                           "a block's shared memory)")
+                           "not take this shape (shape_ok in csrc/damsm_sim.cu or "
+                           "csrc/damsm_dwords.cu: a block's shared memory)")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _chunk(majors: int, loop: int) -> int:
-    """Loop items per block so that majors * splits fills the card."""
-    splits = max(1, min(loop, math.ceil(_TARGET_BLOCKS / majors)))
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _chunk(majors: int, loop: int, sms: int) -> int:
+    """K2: loop items per block so that majors * splits puts two blocks on
+    each of the card's ``sms`` SMs."""
+    splits = max(1, min(loop, math.ceil(2 * sms / majors)))
     return math.ceil(loop / splits)
 
 
@@ -206,37 +225,60 @@ def launch_fwd(words, img, lens, gamma1, gamma2) -> torch.Tensor:
     return sim
 
 
-def _launch_grad(entry, words, img, lens, g, gamma1, gamma2, out, majors, loop):
-    """K2 or K3: one block per major item and range of ``loop`` items, the
-    ranges' partial sums in scratch when there is more than one."""
-    _check(words, img, g)
-    b, t, d = words.shape
-    bj, r, _ = img.shape
-    chunk = _chunk(majors, loop)
-    splits = math.ceil(loop / chunk)
-    part = out if splits == 1 else torch.empty(
+def _scratch(out, splits: int) -> torch.Tensor:
+    """The ranges' partial sums, or ``out`` itself when there is one range."""
+    return out if splits == 1 else torch.empty(
         (splits, *out.shape), dtype=torch.float32, device=out.device)
-    with torch.cuda.device(words.device):
-        err = getattr(_library(), entry)(
-            words.data_ptr(), img.data_ptr(), lens.data_ptr(), g.data_ptr(),
-            part.data_ptr(), out.data_ptr(), b, bj, t, r, d, chunk,
-            float(gamma1), float(gamma2), _stream(words))
-    _raise_on(err, entry)
-    return out
 
 
 def launch_dimg(words, img, lens, g, gamma1, gamma2) -> torch.Tensor:
-    """K2 on CUDA tensors, as :func:`launch_fwd`."""
-    out = _launch_grad("damsm_sim_dimg", words, img, lens, g, gamma1, gamma2,
-                       torch.empty_like(img), img.shape[0], words.shape[0])
+    """K2 on CUDA tensors, as :func:`launch_fwd`: one block per image and
+    range of texts."""
+    _check(words, img, g)
+    b, t, d = words.shape
+    bj, r, _ = img.shape
+    out = torch.empty_like(img)
+    chunk = _chunk(bj, b, _sm_count(words.device.index))
+    part = _scratch(out, math.ceil(b / chunk))
+    with torch.cuda.device(words.device):
+        err = _library().damsm_sim_dimg(
+            words.data_ptr(), img.data_ptr(), lens.data_ptr(), g.data_ptr(),
+            part.data_ptr(), out.data_ptr(), b, bj, t, r, d, chunk,
+            float(gamma1), float(gamma2), _stream(words))
+    _raise_on(err, "damsm_sim_dimg")
     damsm_sim_dimg.launches += 1
     return out
 
 
+def dwords_grid(b: int, bj: int, texts: int, sms: int) -> Tuple[int, int]:
+    """K3's (images per block, ranges of images): blocks of ``texts`` texts,
+    one block per SM (the block holds most of an SM's shared memory), as
+    many ranges of images as fill one wave of the card's ``sms`` SMs."""
+    majors = math.ceil(b / texts)
+    splits = max(1, min(bj, sms // majors))
+    chunk = math.ceil(bj / splits)
+    return chunk, math.ceil(bj / chunk)
+
+
 def launch_dwords(words, img, lens, g, gamma1, gamma2) -> torch.Tensor:
-    """K3 on CUDA tensors, as :func:`launch_fwd`."""
-    out = _launch_grad("damsm_sim_dwords", words, img, lens, g, gamma1, gamma2,
-                       torch.empty_like(words), words.shape[0], img.shape[0])
+    """K3 on CUDA tensors, as :func:`launch_fwd`: one block per group of
+    texts (two where shared memory allows) and range of images."""
+    _check(words, img, g)
+    b, t, d = words.shape
+    bj, r, _ = img.shape
+    lib = _dwords_library()
+    texts = lib.damsm_dwords_texts(b, t, r, d)
+    if texts == 0:
+        _raise_on(_CUDA_ERROR_INVALID_VALUE, "damsm_sim_dwords")
+    out = torch.empty_like(words)
+    chunk, splits = dwords_grid(b, bj, texts, _sm_count(words.device.index))
+    part = _scratch(out, splits)
+    with torch.cuda.device(words.device):
+        err = lib.damsm_sim_dwords(
+            words.data_ptr(), img.data_ptr(), lens.data_ptr(), g.data_ptr(),
+            part.data_ptr(), out.data_ptr(), b, bj, t, r, d, texts, chunk,
+            float(gamma1), float(gamma2), _stream(words))
+    _raise_on(err, "damsm_sim_dwords")
     damsm_sim_dwords.launches += 1
     return out
 

@@ -9,7 +9,8 @@ caption's words.
 hand-written kernel ``csrc/word_attention.cu`` (the port of the JAX
 package's Pallas ``_attn_kernel``) or raises; on CPU tensors it runs
 :func:`word_attention_plain`, the same function in plain PyTorch.  The
-forward is all that serving needs, so the kernel has no backward yet and
+kernel takes the padding mask itself and builds the additive bias inside
+(one launch a call).  The forward is all that serving needs, so the kernel has no backward yet and
 the wrapper refuses CUDA inputs that require grad.
 """
 
@@ -53,17 +54,27 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.word_attention_tile_rows.argtypes = []
+        lib.word_attention_tile_rows.restype = ctypes.c_int
     return lib
 
 
-def _check(query, source, bias):
-    if query.dim() != 3 or source.dim() != 3 or bias.dim() != 2:
+def tile_rows() -> int:
+    """Query rows per block of the kernel (builds it; needs the toolkit)."""
+    return _library().word_attention_tile_rows()
+
+
+def _check(query, source, pad_mask):
+    if query.dim() != 3 or source.dim() != 3 or (
+            pad_mask is not None and pad_mask.dim() != 2):
         raise ValueError("word_attention wants query (B, QL, D), source "
                          "(B, T, D) and pad_mask (B, T)")
     b, ql, d = query.shape
-    if source.shape[0] != b or source.shape[2] != d or bias.shape != source.shape[:2]:
+    if source.shape[0] != b or source.shape[2] != d or (
+            pad_mask is not None and pad_mask.shape != source.shape[:2]):
+        mask = None if pad_mask is None else tuple(pad_mask.shape)
         raise ValueError(f"shape mismatch: query {tuple(query.shape)}, "
-                         f"source {tuple(source.shape)}, mask {tuple(bias.shape)}")
+                         f"source {tuple(source.shape)}, mask {mask}")
     t = source.shape[1]
     if not (1 <= t <= MAX_T and 1 <= d <= MAX_D and b >= 1 and ql >= 1):
         raise ValueError(f"the kernel takes 1 <= T <= {MAX_T}, 1 <= D <= "
@@ -81,18 +92,20 @@ def _check(query, source, bias):
                                "yet; call it under torch.inference_mode()")
 
 
-def _launch(query, source, bias):
-    _check(query, source, bias)
+def _launch(query, source, pad_mask):
+    """The kernel; it builds the pad bias from the mask itself."""
+    _check(query, source, pad_mask)
     b, ql, d = query.shape
     t = source.shape[1]
-    bias = bias.to(device=query.device, dtype=torch.float32).contiguous()
+    pad = None if pad_mask is None else pad_mask.to(
+        device=query.device, dtype=torch.bool).contiguous()
     ctx = torch.empty_like(query)
     probs = torch.empty((b, ql, t), dtype=torch.float32, device=query.device)
     lib = _library()
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         err = lib.word_attention_fwd(
-            query.data_ptr(), source.data_ptr(), bias.data_ptr(),
+            query.data_ptr(), source.data_ptr(), None if pad is None else pad.data_ptr(),
             ctx.data_ptr(), probs.data_ptr(), b, ql, t, d, stream)
     if err != 0:
         raise RuntimeError(f"word_attention kernel launch failed: CUDA error {err}")
@@ -115,12 +128,11 @@ def word_attention(
     to the kernel (which counts its launches in ``word_attention.launches``),
     CPU tensors to :func:`word_attention_plain`.
     """
-    bias = pad_bias(pad_mask, source)
     if query.device.type == "cpu":
-        return word_attention_plain(query, source, bias)
+        return word_attention_plain(query, source, pad_bias(pad_mask, source))
     if query.device.type != "cuda":
         raise ValueError(f"unsupported device {query.device}")
-    return _launch(query, source, bias)
+    return _launch(query, source, pad_mask)
 
 
 word_attention.launches = 0

@@ -95,7 +95,7 @@ def main() -> int:
     launches = sum(e.count for e in kernels) / args.iters
     top = sorted(kernels, key=_device_us, reverse=True)[: args.top]
     damsm = {e.key: _device_us(e) / 1e3 / args.iters for e in kernels
-             if "damsm_sim" in e.key or "sum_splits" in e.key}
+             if "damsm_" in e.key or "sum_splits" in e.key}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "batch": args.batch,

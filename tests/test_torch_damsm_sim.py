@@ -143,3 +143,32 @@ def test_wrapper_refuses_bad_lengths():
     for bad in ([0, 2], [1, 4]):
         with pytest.raises(ValueError):
             ds.damsm_sim_fwd(_t(words), _t(img), torch.tensor(bad))
+
+
+@pytest.mark.parametrize("b,bj,texts", [(32, 32, 2), (32, 32, 1), (128, 128, 2),
+                                        (30, 30, 2), (1, 1, 1), (300, 7, 2)])
+@pytest.mark.parametrize("sms", [132, 78])
+def test_dwords_grid_covers_every_image_once_in_one_wave(b, bj, texts, sms):
+    chunk, splits = ds.dwords_grid(b, bj, texts, sms)
+    assert splits == -(-bj // chunk)  # no empty range of images
+    assert (splits - 1) * chunk < bj <= splits * chunk
+    groups = -(-b // texts)
+    assert groups * splits <= max(sms, groups)  # one block per SM, one wave
+
+
+def test_kernel_builds_are_named_by_source_and_headers(tmp_path, monkeypatch):
+    from sba_gan_tpu_torch.ops import _build
+
+    assert all((_build.CSRC / src).is_file() for src in _build.SOURCES.values())
+    assert (_build.CSRC / "damsm_common.cuh").is_file()
+    names = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert len(set(names.values())) == len(names)
+    # a change to a shared header renames every library built from csrc/
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert _build.library_path("damsm_dwords") == names["damsm_dwords"]
+    (csrc / "damsm_common.cuh").write_text("// changed\n")
+    assert _build.library_path("damsm_dwords") != names["damsm_dwords"]

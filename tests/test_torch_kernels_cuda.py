@@ -9,7 +9,8 @@ machine with PyTorch and the CUDA toolkit alone:
 Tolerance rtol 1e-5, atol 1e-5 for word attention: float32 on both sides,
 sums in another order.  The DAMSM kernels (K1-K3) sum over D and R through
 three softmaxes: rtol 1e-4 / atol 1e-4 on sim, and rtol 1e-3 / atol 1e-3
-times the largest entry on the gradients.
+times the largest entry on the gradients (K3's products run on the tensor
+cores in 3xTF32, which keeps float32 accuracy).
 """
 
 import pytest
@@ -55,6 +56,33 @@ def test_word_attention_matches_plain(cuda, b, ql, t, d, lens):
     torch.testing.assert_close(ctx, ctx_p, **TOL)
     torch.testing.assert_close(att, att_p, **TOL)
     if lens is not None and 0 in lens:  # uniform over all T, not NaN
+        row = att[lens.index(0)]
+        torch.testing.assert_close(row, torch.full_like(row, 1.0 / t), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,tiles,extra,lens", [
+    (1, 25, 32, 1, 1, [11]),  # one row past the tile
+    (6, 25, 32, 3, 17, [25, 18, 9, 3, 1, 0]),  # ragged QL, all-padding row
+    (1, 1, 32, 2, 0, [1]),  # one word
+    (6, 32, 32, 1, 1, [32, 31, 16, 2, 1, 0]),  # every word slot
+    (2, 25, 8, 1, 1, [25, 0]),  # small D: the generic instance
+    (1, 32, 256, 2, 5, [7]),  # the largest D
+    (6, 25, 36, 1, 3, [25, 18, 9, 3, 1, 0]),  # D not a multiple of 32
+])
+def test_word_attention_edges(cuda, b, t, d, tiles, extra, lens):
+    ql = tiles * wa.tile_rows() + extra
+    q, s, pad = _inputs(cuda, b, ql, t, d, lens, seed=ql + d)
+    # scores of unit variance at every D, as the generator's are: with unit
+    # queries at D 256 they would reach ~50, where float32 rounding of a sum
+    # over D alone moves P by ~1e-5
+    q = q * d ** -0.5
+    ctx, att = wa.word_attention(q, s, pad)
+    torch.cuda.synchronize()
+    ctx_p, att_p = wa.word_attention_plain(q, s, wa.pad_bias(pad, s))
+    torch.testing.assert_close(ctx, ctx_p, **TOL)
+    torch.testing.assert_close(att, att_p, **TOL)
+    if 0 in lens:
         row = att[lens.index(0)]
         torch.testing.assert_close(row, torch.full_like(row, 1.0 / t), **TOL)
 
@@ -113,6 +141,45 @@ def test_damsm_kernels_match_plain(cuda, b, t, r, d):
     assert torch.all(d_words[pad] == 0)
 
 
+def _check_dwords(words, img, lens, g, got):
+    want = ds.damsm_sim_dwords_plain(words, img, lens, g)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * want.abs().max().item())
+    pad = (torch.arange(words.shape[1])[None, :] >= lens[:, None]).to(got.device)
+    assert torch.all(got[pad] == 0)  # exactly zero at padding
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,r,d", [
+    (1, 20, 289, 256),  # one text, one image
+    (30, 20, 289, 256),  # odd groups of two texts
+    (128, 18, 289, 256),  # the GAN step's shape
+    (6, 32, 289, 256),  # T 32: one text a block
+    (7, 20, 300, 256),  # ragged R, past a chunk
+    (5, 32, 17, 8),  # small R and D
+    (3, 20, 17, 12),  # D not a multiple of 8
+    (4, 1, 289, 256),  # one word
+])
+def test_damsm_dwords_edges(cuda, b, t, r, d):
+    words, img, lens, g = _damsm_inputs(cuda, b, t, r, d, seed=b + r)
+    _check_dwords(words, img, lens, g, ds.damsm_sim_dwords(words, img, lens, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["one", "full"])
+def test_damsm_dwords_every_caption_one_or_t_words(cuda, fill):
+    words, img, lens, g = _damsm_inputs(cuda, 9, 20, 289, 256, seed=3)
+    lens = torch.full_like(lens, 1 if fill == "one" else 20)
+    _check_dwords(words, img, lens, g, ds.damsm_sim_dwords(words, img, lens, g))
+
+
+@pytest.mark.cuda
+def test_damsm_dwords_is_deterministic(cuda):
+    words, img, lens, g = _damsm_inputs(cuda, 32, 20, 289, 256, seed=5)
+    first = ds.damsm_sim_dwords(words, img, lens, g)
+    second = ds.damsm_sim_dwords(words, img, lens, g)
+    assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 def test_damsm_function_routes_backward(cuda):
     words, img, lens, g = _damsm_inputs(cuda, 6, 5, 17, 8)
@@ -146,3 +213,5 @@ def test_damsm_wrappers_refuse_what_they_do_not_take(cuda):
         ds.damsm_sim_fwd(w, x, lw)
     with pytest.raises(RuntimeError, match="does not take this shape"):
         ds.damsm_sim_dimg(w, x, lw, gw)
+    with pytest.raises(RuntimeError, match="does not take this shape"):
+        ds.damsm_sim_dwords(w, x, lw, gw)

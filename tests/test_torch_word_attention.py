@@ -65,3 +65,11 @@ def test_pad_bias():
     assert bias.dtype == torch.float32
     assert bias.tolist() == [[0.0, -1e9, -1e9], [0.0, 0.0, 0.0]]
     assert wa.pad_bias(None, s).abs().sum() == 0
+
+
+def test_kernel_wrapper_checks_the_mask_shape():
+    q, s = torch.zeros(2, 5, 8), torch.zeros(2, 3, 8)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        wa._check(q, s, torch.zeros(2, 4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="pad_mask"):
+        wa._check(q, s, torch.zeros(2, 3, 1, dtype=torch.bool))
