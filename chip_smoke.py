@@ -6,7 +6,8 @@ and nothing of JAX.  Phases, each printing one line or more:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles every CUDA kernel of the port from ``ops/csrc`` (nvcc,
-   all sources at once) and loads it;
+   all sources at once) and loads it; prints each kernel function's
+   registers and spills as ptxas reports them;
 3. kernel checks: each kernel against its plain PyTorch version on the card
    at the serving shapes (word attention: B 1 and 6, QL 64^2, 128^2 and a
    ragged QL, T 25, D 32; ragged captions and an all-padding row), with
@@ -14,11 +15,12 @@ and nothing of JAX.  Phases, each printing one line or more:
    (calls captured in a CUDA graph) and times as called from Python, and
    the least time the card could take;
 4. DAMSM kernels: the similarity kernels K1-K3 (forward, image gradient,
-   word gradient) against their plain versions in the same way, at B 32 T 20 (pretrain), B 128 T 18 (the GAN step's shape) and
-   a ragged B 30, R 289, D 256, captions of 1 to T words, with a random
-   cotangent; no single library call computes them (``library_ms`` null).
-   K3 runs its products on the tensor cores in 3xTF32: its row also gives
-   the bound of those products at the TF32 rate (``bound_tc_ms``);
+   word gradient) against their plain versions in the same way, at B 32
+   T 20 (pretrain), B 128 T 18 (the GAN step's shape) and a ragged B 30,
+   R 289, D 256, captions of 1 to T words, with a random cotangent; no
+   single library call computes them (``library_ms`` null).  All three run
+   their products on the tensor cores in 3xTF32: each row also gives the
+   bound of those products at the TF32 rate (``bound_tc_ms``);
 5. slice: the full-width ``eval_bird`` generator (vocabulary 5450, random
    weights from a seed, random BatchNorm statistics) on the card against
    the same models on the CPU, same captions and noise, TF32 off;
@@ -132,6 +134,18 @@ def phase_device():
     return name, smi
 
 
+def ptxas_by_function(log: str) -> dict:
+    """``{kernel function: [its ptxas lines]}`` from an ``nvcc -Xptxas -v``
+    log: the spill line and the registers line after each entry function."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif name is not None and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
 def phase_build():
     from sba_gan_tpu_torch.ops import _build
 
@@ -141,9 +155,7 @@ def phase_build():
         _build.load(name)
     seconds = time.time() - t0
     for name, log in logs.items():
-        ptxas = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        say("build", kernel=name, ptxas=ptxas)
+        say("build", kernel=name, ptxas=ptxas_by_function(log))
     say("build", seconds=round(seconds, 3), kernels=sorted(logs))
 
 
@@ -283,9 +295,8 @@ def damsm_case(b, t, seed, gamma1=4.0, gamma2=5.0):
             "eager_ms": eager_ms(kernel, iters=5),
             "plain_eager_ms": eager_ms(plain, iters=5),
         }
-        if name == "damsm_sim_dwords":  # 3xTF32: each product three times
-            rows[name]["bound_tc_ms"] = max(bytes_ms,
-                                            3 * flops / TF32_FLOPS_PER_S * 1e3)
+        # 3xTF32 on the tensor cores: each product three times
+        rows[name]["bound_tc_ms"] = max(bytes_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
     return rows
 
 
@@ -622,12 +633,11 @@ def main() -> int:
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row["shape"], "eager_ms": row["eager_ms"],
+            "bound_tc_ms": row["bound_tc_ms"],
             "gan_step": {k: gan[k] for k in ("shape", "kernel_ms", "plain_ms",
                                              "bound_ms", "bound_by", "eager_ms",
-                                             "bound_tc_ms") if k in gan},
+                                             "bound_tc_ms")},
         })
-        if "bound_tc_ms" in row:
-            kernels[-1]["bound_tc_ms"] = row["bound_tc_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

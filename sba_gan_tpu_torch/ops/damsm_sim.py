@@ -11,12 +11,12 @@ For text i (words W_i, (T, D), the first ``cap_lens[i]`` real) and image j
     sim[i, j] = logsumexp over real words of g2 cos(W_i[t], C[t])   (Eq. 10)
 
 Three hand-written kernels, the port of the JAX package's Pallas
-``_fwd_kernel``, ``_dimg_kernel`` and ``_dwords_kernel``:
+``_fwd_kernel``, ``_dimg_kernel`` and ``_dwords_kernel``, all on one
+tensor-core product core (``csrc/damsm_common.cuh``):
 
 * :func:`damsm_sim_fwd`    K1, sim (B, Bj)                    ``csrc/damsm_sim.cu``;
 * :func:`damsm_sim_dimg`   K2, d_img (Bj, R, D) for a cotangent g (B, Bj), same file;
-* :func:`damsm_sim_dwords` K3, d_words (B, T, D), on the tensor cores,
-  ``csrc/damsm_dwords.cu``.
+* :func:`damsm_sim_dwords` K3, d_words (B, T, D),             ``csrc/damsm_dwords.cu``.
 
 Each wrapper sends CUDA tensors to its kernel (counting the launch in its
 ``launches``) or raises, and CPU tensors to its plain version
@@ -24,7 +24,10 @@ Each wrapper sends CUDA tensors to its kernel (counting the launch in its
 :func:`damsm_sim_dwords_plain`: the same math on the dense (B, Bj, T, R)
 grid, float32 or float64).  :func:`damsm_sim` is the differentiable entry:
 its backward runs K2 only when the image needs a gradient and K3 only when
-the words do.  The kernels take any B (no tile has to divide it).
+the words do.  The kernels take any B (no tile has to divide it); a block
+holds one or two texts (the C side decides, by shared memory), and the
+grids (:func:`dwords_grid` for K1 and K3, :func:`dimg_grid`) put one
+wave of blocks on the card's SMs.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 
 NEG_INF = -1e9
 EPS = 1e-8
-MAX_T = 32  # what the kernels hold (kMaxT, kMaxD in csrc/damsm_*.cu)
+MAX_T = 32  # what the kernels hold (kMaxT, kMaxD in csrc/damsm_common.cuh)
 MAX_D = 256
 _CUDA_ERROR_INVALID_VALUE = 1  # what the C entry points return for a shape
 
@@ -127,10 +130,12 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("damsm_sim")
     if lib.damsm_sim_fwd.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.damsm_sim_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [f32] * 2 + [ptr]
+        lib.damsm_sim_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [f32] * 2 + [ptr]
         lib.damsm_sim_fwd.restype = i32
-        lib.damsm_sim_dimg.argtypes = [ptr] * 6 + [i32] * 6 + [f32] * 2 + [ptr]
+        lib.damsm_sim_dimg.argtypes = [ptr] * 6 + [i32] * 7 + [f32] * 2 + [ptr]
         lib.damsm_sim_dimg.restype = i32
+        lib.damsm_sim_texts.argtypes = [i32] * 4
+        lib.damsm_sim_texts.restype = i32
     return lib
 
 
@@ -192,8 +197,8 @@ def _stream(x) -> int:
 def _raise_on(err: int, name: str) -> None:
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise RuntimeError(f"{name}: CUDA error 1, invalid value: the kernel does "
-                           "not take this shape (shape_ok in csrc/damsm_sim.cu or "
-                           "csrc/damsm_dwords.cu: a block's shared memory)")
+                           "not take this shape (shape_ok in "
+                           "csrc/damsm_common.cuh: a block's shared memory)")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -203,26 +208,34 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _chunk(majors: int, loop: int, sms: int) -> int:
-    """K2: loop items per block so that majors * splits puts two blocks on
-    each of the card's ``sms`` SMs."""
-    splits = max(1, min(loop, math.ceil(2 * sms / majors)))
-    return math.ceil(loop / splits)
+def _one_wave(majors: int, items: int, sms: int) -> Tuple[int, int]:
+    """(items per block, ranges of items): ``majors`` blocks a range, one
+    block per SM (a block holds most of an SM's shared memory), as many
+    ranges as fill one wave of the card's ``sms`` SMs."""
+    splits = max(1, min(items, sms // majors))
+    chunk = math.ceil(items / splits)
+    return chunk, math.ceil(items / chunk)
 
 
-def launch_fwd(words, img, lens, gamma1, gamma2) -> torch.Tensor:
-    """K1 on CUDA tensors; ``lens`` (B,) int32 on the device, already checked."""
-    _check(words, img)
-    b, t, d = words.shape
-    bj, r, _ = img.shape
-    sim = torch.empty((b, bj), dtype=torch.float32, device=words.device)
-    with torch.cuda.device(words.device):
-        err = _library().damsm_sim_fwd(
-            words.data_ptr(), img.data_ptr(), lens.data_ptr(), sim.data_ptr(),
-            b, bj, t, r, d, float(gamma1), float(gamma2), _stream(words))
-    _raise_on(err, "damsm_sim_fwd")
-    damsm_sim_fwd.launches += 1
-    return sim
+def dwords_grid(b: int, bj: int, texts: int, sms: int) -> Tuple[int, int]:
+    """K3's and K1's (images per block, ranges of images): a block per
+    group of ``texts`` texts and range of images."""
+    return _one_wave(math.ceil(b / texts), bj, sms)
+
+
+def dimg_grid(b: int, bj: int, texts: int, sms: int) -> Tuple[int, int]:
+    """K2's (groups of ``texts`` texts per block, ranges of groups): a block
+    per image and range of groups."""
+    return _one_wave(bj, math.ceil(b / texts), sms)
+
+
+def _texts(count, name: str, b: int, t: int, r: int, d: int) -> int:
+    """Texts a block holds (``count``: the C side's choice); raises when
+    no block fits in shared memory."""
+    texts = count(b, t, r, d)
+    if texts == 0:
+        _raise_on(_CUDA_ERROR_INVALID_VALUE, name)
+    return texts
 
 
 def _scratch(out, splits: int) -> torch.Tensor:
@@ -231,45 +244,54 @@ def _scratch(out, splits: int) -> torch.Tensor:
         (splits, *out.shape), dtype=torch.float32, device=out.device)
 
 
+def launch_fwd(words, img, lens, gamma1, gamma2) -> torch.Tensor:
+    """K1 on CUDA tensors; ``lens`` (B,) int32 on the device, already
+    checked.  One block per group of texts and range of images."""
+    _check(words, img)
+    b, t, d = words.shape
+    bj, r, _ = img.shape
+    lib = _library()
+    texts = _texts(lib.damsm_sim_texts, "damsm_sim_fwd", b, t, r, d)
+    chunk, _ = dwords_grid(b, bj, texts, _sm_count(words.device.index))
+    sim = torch.empty((b, bj), dtype=torch.float32, device=words.device)
+    with torch.cuda.device(words.device):
+        err = lib.damsm_sim_fwd(
+            words.data_ptr(), img.data_ptr(), lens.data_ptr(), sim.data_ptr(),
+            b, bj, t, r, d, texts, chunk, float(gamma1), float(gamma2), _stream(words))
+    _raise_on(err, "damsm_sim_fwd")
+    damsm_sim_fwd.launches += 1
+    return sim
+
+
 def launch_dimg(words, img, lens, g, gamma1, gamma2) -> torch.Tensor:
     """K2 on CUDA tensors, as :func:`launch_fwd`: one block per image and
-    range of texts."""
+    range of text groups."""
     _check(words, img, g)
     b, t, d = words.shape
     bj, r, _ = img.shape
+    lib = _library()
+    texts = _texts(lib.damsm_sim_texts, "damsm_sim_dimg", b, t, r, d)
+    chunk, splits = dimg_grid(b, bj, texts, _sm_count(words.device.index))
     out = torch.empty_like(img)
-    chunk = _chunk(bj, b, _sm_count(words.device.index))
-    part = _scratch(out, math.ceil(b / chunk))
+    part = _scratch(out, splits)
     with torch.cuda.device(words.device):
-        err = _library().damsm_sim_dimg(
+        err = lib.damsm_sim_dimg(
             words.data_ptr(), img.data_ptr(), lens.data_ptr(), g.data_ptr(),
-            part.data_ptr(), out.data_ptr(), b, bj, t, r, d, chunk,
+            part.data_ptr(), out.data_ptr(), b, bj, t, r, d, texts, chunk,
             float(gamma1), float(gamma2), _stream(words))
     _raise_on(err, "damsm_sim_dimg")
     damsm_sim_dimg.launches += 1
     return out
 
 
-def dwords_grid(b: int, bj: int, texts: int, sms: int) -> Tuple[int, int]:
-    """K3's (images per block, ranges of images): blocks of ``texts`` texts,
-    one block per SM (the block holds most of an SM's shared memory), as
-    many ranges of images as fill one wave of the card's ``sms`` SMs."""
-    majors = math.ceil(b / texts)
-    splits = max(1, min(bj, sms // majors))
-    chunk = math.ceil(bj / splits)
-    return chunk, math.ceil(bj / chunk)
-
-
 def launch_dwords(words, img, lens, g, gamma1, gamma2) -> torch.Tensor:
     """K3 on CUDA tensors, as :func:`launch_fwd`: one block per group of
-    texts (two where shared memory allows) and range of images."""
+    texts and range of images."""
     _check(words, img, g)
     b, t, d = words.shape
     bj, r, _ = img.shape
     lib = _dwords_library()
-    texts = lib.damsm_dwords_texts(b, t, r, d)
-    if texts == 0:
-        _raise_on(_CUDA_ERROR_INVALID_VALUE, "damsm_sim_dwords")
+    texts = _texts(lib.damsm_dwords_texts, "damsm_sim_dwords", b, t, r, d)
     out = torch.empty_like(words)
     chunk, splits = dwords_grid(b, bj, texts, _sm_count(words.device.index))
     part = _scratch(out, splits)

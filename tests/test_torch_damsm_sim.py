@@ -156,6 +156,52 @@ def test_dwords_grid_covers_every_image_once_in_one_wave(b, bj, texts, sms):
     assert groups * splits <= max(sms, groups)  # one block per SM, one wave
 
 
+def _blocks_cover_once(groups, splits, chunk, items):
+    """Every (group, split) block's items, each item exactly once a group."""
+    seen = [[0] * items for _ in range(groups)]
+    for grp in range(groups):
+        for sp in range(splits):
+            for it in range(sp * chunk, min(items, (sp + 1) * chunk)):
+                seen[grp][it] += 1
+    return all(n == 1 for row in seen for n in row)
+
+
+GRID_CASES = [(32, 32, 2), (32, 32, 1), (128, 128, 2), (30, 30, 2), (1, 1, 1),
+              (300, 7, 2), (7, 300, 2), (5, 5, 2)]
+
+
+@pytest.mark.parametrize("b,bj,texts", GRID_CASES)
+@pytest.mark.parametrize("sms", [132, 78])
+def test_fwd_grid_covers_every_pair_once_in_one_wave(b, bj, texts, sms):
+    """K1 (K3's grid): a block per group of texts and range of images."""
+    chunk, splits = ds.dwords_grid(b, bj, texts, sms)
+    groups = -(-b // texts)
+    assert (splits - 1) * chunk < bj <= splits * chunk  # no empty range
+    assert _blocks_cover_once(groups, splits, chunk, bj)
+    assert groups * splits <= max(sms, groups)  # one block per SM, one wave
+
+
+@pytest.mark.parametrize("b,bj,texts", GRID_CASES)
+@pytest.mark.parametrize("sms", [132, 78])
+def test_dimg_grid_covers_every_text_once_in_one_wave(b, bj, texts, sms):
+    """K2: a block per image and range of groups of texts."""
+    chunk, splits = ds.dimg_grid(b, bj, texts, sms)
+    groups = -(-b // texts)
+    assert (splits - 1) * chunk < groups <= splits * chunk  # no empty range
+    assert _blocks_cover_once(bj, splits, chunk, groups)
+    assert bj * splits <= max(sms, bj)  # one block per SM, one wave
+    if b >= 32 and bj * 2 <= sms:  # a batch that leaves SMs idle is split
+        assert splits > 1
+
+
+def test_grids_at_the_pretrain_and_gan_step_shapes():
+    """On an H100 (132 SMs), two texts a block."""
+    assert ds.dimg_grid(32, 32, 2, 132) == (4, 4)  # 32 images x 4 ranges
+    assert ds.dimg_grid(128, 128, 2, 132) == (64, 1)  # 128 images x 1 range
+    assert ds.dwords_grid(32, 32, 2, 132) == (4, 8)  # 16 groups x 8 ranges
+    assert ds.dwords_grid(128, 128, 2, 132) == (64, 2)  # 64 groups x 2 ranges
+
+
 def test_kernel_builds_are_named_by_source_and_headers(tmp_path, monkeypatch):
     from sba_gan_tpu_torch.ops import _build
 

@@ -9,8 +9,8 @@ machine with PyTorch and the CUDA toolkit alone:
 Tolerance rtol 1e-5, atol 1e-5 for word attention: float32 on both sides,
 sums in another order.  The DAMSM kernels (K1-K3) sum over D and R through
 three softmaxes: rtol 1e-4 / atol 1e-4 on sim, and rtol 1e-3 / atol 1e-3
-times the largest entry on the gradients (K3's products run on the tensor
-cores in 3xTF32, which keeps float32 accuracy).
+times the largest entry on the gradients (their products run on the
+tensor cores in 3xTF32, which keeps float32 accuracy).
 """
 
 import pytest
@@ -141,42 +141,61 @@ def test_damsm_kernels_match_plain(cuda, b, t, r, d):
     assert torch.all(d_words[pad] == 0)
 
 
-def _check_dwords(words, img, lens, g, got):
-    want = ds.damsm_sim_dwords_plain(words, img, lens, g)
+def _check_kernel(kernel, words, img, lens, g):
+    """K1, K2 or K3 through its public wrapper against its plain version;
+    returns the kernel's result."""
+    if kernel == "fwd":
+        got = ds.damsm_sim_fwd(words, img, lens)
+        torch.testing.assert_close(got, ds.damsm_sim_plain(words, img, lens),
+                                   rtol=1e-4, atol=1e-4)
+        return got
+    wrapper, plain = {"dimg": (ds.damsm_sim_dimg, ds.damsm_sim_dimg_plain),
+                      "dwords": (ds.damsm_sim_dwords, ds.damsm_sim_dwords_plain)}[kernel]
+    got = wrapper(words, img, lens, g)
+    want = plain(words, img, lens, g)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * want.abs().max().item())
-    pad = (torch.arange(words.shape[1])[None, :] >= lens[:, None]).to(got.device)
-    assert torch.all(got[pad] == 0)  # exactly zero at padding
+    if kernel == "dwords":
+        pad = (torch.arange(words.shape[1])[None, :] >= lens[:, None]).to(got.device)
+        assert torch.all(got[pad] == 0)  # exactly zero at padding
+    return got
+
+
+DAMSM_KERNELS = ["fwd", "dimg", "dwords"]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DAMSM_KERNELS)
 @pytest.mark.parametrize("b,t,r,d", [
     (1, 20, 289, 256),  # one text, one image
     (30, 20, 289, 256),  # odd groups of two texts
     (128, 18, 289, 256),  # the GAN step's shape
     (6, 32, 289, 256),  # T 32: one text a block
-    (7, 20, 300, 256),  # ragged R, past a chunk
+    (7, 20, 300, 256),  # ragged R, past a chunk; odd B: a group of one text
     (5, 32, 17, 8),  # small R and D
     (3, 20, 17, 12),  # D not a multiple of 8
     (4, 1, 289, 256),  # one word
 ])
-def test_damsm_dwords_edges(cuda, b, t, r, d):
+def test_damsm_kernel_edges(cuda, kernel, b, t, r, d):
     words, img, lens, g = _damsm_inputs(cuda, b, t, r, d, seed=b + r)
-    _check_dwords(words, img, lens, g, ds.damsm_sim_dwords(words, img, lens, g))
+    _check_kernel(kernel, words, img, lens, g)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DAMSM_KERNELS)
 @pytest.mark.parametrize("fill", ["one", "full"])
-def test_damsm_dwords_every_caption_one_or_t_words(cuda, fill):
+def test_damsm_kernels_every_caption_one_or_t_words(cuda, kernel, fill):
     words, img, lens, g = _damsm_inputs(cuda, 9, 20, 289, 256, seed=3)
     lens = torch.full_like(lens, 1 if fill == "one" else 20)
-    _check_dwords(words, img, lens, g, ds.damsm_sim_dwords(words, img, lens, g))
+    _check_kernel(kernel, words, img, lens, g)
 
 
 @pytest.mark.cuda
-def test_damsm_dwords_is_deterministic(cuda):
+@pytest.mark.parametrize("kernel", DAMSM_KERNELS)
+def test_damsm_kernels_are_deterministic(cuda, kernel):
+    """Bit for bit from call to call: fixed order of every sum, no atomics."""
     words, img, lens, g = _damsm_inputs(cuda, 32, 20, 289, 256, seed=5)
-    first = ds.damsm_sim_dwords(words, img, lens, g)
-    second = ds.damsm_sim_dwords(words, img, lens, g)
+    first = _check_kernel(kernel, words, img, lens, g)
+    second = _check_kernel(kernel, words, img, lens, g)
     assert torch.equal(first, second)
 
 
