@@ -3,12 +3,15 @@
 The same schema and strict YAML merge as the JAX package's config (unknown
 keys raise ``KeyError``, type mismatches raise ``ValueError``), so every
 preset of the repository loads unchanged.  The port reads ``TREE``,
-``GAN``, ``TEXT``, ``TRAIN`` (batch size, encoder learning rate, the RNN
-gradient clip, ``SMOOTH`` gammas, ``MIXING``), ``RNN_TYPE``,
-``MODEL.TEXT_ENCODER`` / ``INCEPTION_INPUT``, and of the ``JAX`` group only
-``SEED`` and ``LOSS_DTYPE`` (float32; bfloat16 raises until the kernels
-have that path).  The other ``JAX`` keys and the ``BENCH`` group are
-accepted so that presets carrying them still load, and have no effect
+``GAN``, ``TEXT``, ``TRAIN`` (batch size, epochs, snapshot interval, the
+three learning rates, the RNN gradient clip, ``SMOOTH``, ``MIXING``,
+``FLAG``, ``NET_E``; ``GRAD_ACCUM`` > 1 raises until it is ported),
+``RNN_TYPE``, ``MODEL.TEXT_ENCODER`` / ``INCEPTION_INPUT``, and of the
+``JAX`` group only ``SEED``, ``DTYPE`` and ``LOSS_DTYPE`` (float32 only:
+the model builders refuse any other ``DTYPE`` through
+:func:`require_float32`, and bfloat16 ``LOSS_DTYPE`` raises, until the
+bf16 paths are ported).  The other ``JAX`` keys and the ``BENCH`` group
+are accepted so that presets carrying them still load, and have no effect
 here.  In particular ``DAMSM_SIM_IMPL``, ``DAMSM_SIM_TILE``,
 ``DAMSM_GRID_CHUNKS``, ``DAMSM_FOLD_SOFTMAX``, ``DAMSM_CHUNKS``,
 ``USE_PALLAS`` and ``REMAT_IMAGE_ENCODER*`` are XLA/TPU levers that give
@@ -218,6 +221,14 @@ def cfg_from_dict(d: Dict[str, Any], base: ConfigDict | None = None) -> ConfigDi
     cfg = base if base is not None else default_config()
     merge_into(d, cfg)
     return cfg
+
+
+def require_float32(cfg) -> None:
+    """Raise for a compute dtype the port does not have yet."""
+    if cfg.JAX.DTYPE != "float32":
+        raise NotImplementedError(
+            f"JAX.DTYPE={cfg.JAX.DTYPE!r}: the port computes in float32 only; "
+            "bf16 compute is still to port (ROADMAP.md, queue 1, item 2)")
 
 
 def preset(name: str) -> ConfigDict:

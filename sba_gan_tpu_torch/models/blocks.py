@@ -1,16 +1,15 @@
-"""Generator building blocks, NCHW.
+"""Generator and discriminator building blocks, NCHW.
 
-The port's counterparts of the JAX package's generator-side blocks
+The port's counterparts of the JAX package's blocks
 (``sba_gan_tpu/models/blocks.py``).  Submodule names and ``nn.Sequential``
-indices follow the reference G_NET state-dict keys (``upsample.1`` conv,
-``upsample.2`` BN, ``block.{0,1,3,4}``), so :mod:`utils.weights` can map
-every Flax path to one key.
+indices follow the reference G_NET and D_NET state-dict keys (``upsample.1``
+conv, ``upsample.2`` BN, ``block.{0,1,3,4}``; a down block's ``0`` conv and
+``1`` BN), so :mod:`utils.weights` can map every Flax path to one key.
 
 The JAX package's ``UPBLOCK_FUSED``, ``BN_COMPACT``, ``RGB_HEAD_PAD`` and
 ``CONV_WGRAD_DOT`` levers are XLA lowerings of the same values; the port
-computes the plain math and needs none of them.  BatchNorm is torch's, used
-in eval mode on the running statistics; train mode (with flax's biased
-running-variance update) comes with the training slice.
+computes the plain math and needs none of them.  BatchNorm is
+:class:`models.norms.BatchNorm` (flax's train-mode statistics, eps 1e-5).
 """
 
 from __future__ import annotations
@@ -18,7 +17,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from sba_gan_tpu_torch.models.norms import BatchNorm
+
 BN_EPS = 1e-5
+LEAK = 0.2
 
 
 def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -39,8 +41,8 @@ def conv3x3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
 
 
-def batch_norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+def batch_norm(c: int) -> BatchNorm:
+    return BatchNorm(c, eps=BN_EPS)
 
 
 def up_block(cin: int, cout: int) -> nn.Sequential:
@@ -116,6 +118,30 @@ class AdaINNorm(nn.Module):
     def forward(self, h, w_code):
         gamma, beta = self.style(w_code)[:, :, None, None].chunk(2, dim=1)
         return (gamma + 1.0) * instance_norm_2d(h) + beta
+
+
+# --------------------------- discriminator blocks --------------------------
+
+
+def block3x3_leak_relu(cin: int, cout: int) -> nn.Sequential:
+    """conv3x3 -> BN -> LeakyReLU(0.2), same spatial size."""
+    return nn.Sequential(conv3x3(cin, cout), batch_norm(cout), nn.LeakyReLU(LEAK))
+
+
+def down_block(cin: int, cout: int) -> nn.Sequential:
+    """4x4 stride-2 conv (padding 1, no bias) -> BN -> LeakyReLU(0.2): H/2."""
+    return nn.Sequential(nn.Conv2d(cin, cout, 4, stride=2, padding=1, bias=False),
+                         batch_norm(cout), nn.LeakyReLU(LEAK))
+
+
+def encode_by_16(ndf: int) -> nn.Sequential:
+    """3 -> ndf -> 2ndf -> 4ndf -> 8ndf by four stride-2 4x4 convs, H/16; the
+    first conv has no BN.  Flat, as the reference's
+    ``encode_image_by_16times`` (convs at 0, 2, 5, 8; BNs at 3, 6, 9)."""
+    layers = [nn.Conv2d(3, ndf, 4, stride=2, padding=1, bias=False), nn.LeakyReLU(LEAK)]
+    for mult in (1, 2, 4):
+        layers.extend(down_block(ndf * mult, ndf * mult * 2))
+    return nn.Sequential(*layers)
 
 
 @torch.no_grad()

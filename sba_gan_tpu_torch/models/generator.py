@@ -28,6 +28,7 @@ from sba_gan_tpu_torch.models.blocks import (
     GLU,
     MappingNet,
     ResBlock,
+    batch_norm,
     conv3x3,
     up_block,
 )
@@ -41,7 +42,7 @@ class InitStageG(nn.Module):
         self.ngf = ngf
         self.fc = nn.Sequential(
             nn.Linear(in_dim, ngf * 4 * 4 * 2, bias=False),
-            nn.BatchNorm1d(ngf * 4 * 4 * 2, eps=1e-5),
+            batch_norm(ngf * 4 * 4 * 2),
             GLU(),
         )
         self.upsample1 = up_block(ngf, ngf // 2)
@@ -86,13 +87,17 @@ class GetImageG(nn.Module):
 
 
 class GNet(nn.Module):
-    """Tree generator (G_NET / G_NET_MIX), eval mode.
+    """Tree generator (G_NET / G_NET_MIX).  In train mode its BatchNorms
+    normalize by batch statistics and move their running statistics as flax
+    does; in eval mode they use the running statistics.
 
     forward(z, sent_emb, word_embs, pad_mask, eps):
       z:         (B, Z) noise, or (2, B, Z) with ``style_mixing``.
       sent_emb:  (B, nef); word_embs (B, T, nef); pad_mask (B, T) bool.
       eps:       (B, condition_dim) CA-net noise.
     Returns (images [(B, S, S, 3)], maps [(B, H, W, T)], mu, logvar).
+    :meth:`forward_nchw` returns the images as (B, 3, S, S), as the
+    discriminators take them.
     """
 
     def __init__(self, gf_dim: int, nef: int, z_dim: int, condition_dim: int,
@@ -121,6 +126,13 @@ class GNet(nn.Module):
     def forward(self, z, sent_emb, word_embs, pad_mask: Optional[torch.Tensor],
                 eps) -> Tuple[List[torch.Tensor], List[torch.Tensor],
                               torch.Tensor, torch.Tensor]:
+        fakes, atts, mu, logvar = self.forward_nchw(z, sent_emb, word_embs, pad_mask, eps)
+        fakes = [f.permute(0, 2, 3, 1).contiguous() for f in fakes]
+        return fakes, atts, mu, logvar
+
+    def forward_nchw(self, z, sent_emb, word_embs, pad_mask: Optional[torch.Tensor],
+                     eps) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                   torch.Tensor, torch.Tensor]:
         c_code, mu, logvar = self.ca_net(sent_emb, eps)
         if self.style_mixing:
             w_code2, w_code3 = self.mapping_net(z[0]), self.mapping_net(z[1])
@@ -136,7 +148,6 @@ class GNet(nn.Module):
             h, att = getattr(self, f"h_net{j}")(h, w_code, word_embs, pad_mask)
             fakes.append(getattr(self, f"img_net{j}")(h))
             atts.append(att)
-        fakes = [f.permute(0, 2, 3, 1).contiguous() for f in fakes]
         return fakes, atts, mu, logvar
 
 

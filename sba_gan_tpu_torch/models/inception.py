@@ -10,10 +10,10 @@ through ``emb_cnn_code`` (linear) to the global code (B, nef).
 
 Module names are torchvision's (``Conv2d_1a_3x3.conv.weight``,
 ``Mixed_5b.branch1x1.bn.running_mean``, ...), so a state dict has the keys
-that the JAX package's ``port_cnn_encoder`` reads.  BatchNorm follows flax:
-eps 1e-3, and in train mode the running statistics move as
-``new = 0.9 old + 0.1 batch`` with the *biased* batch variance (flax's
-E[x^2] - E[x]^2, clipped at 0), not torch's unbiased one.
+that the JAX package's ``port_cnn_encoder`` reads.  BatchNorm is flax's
+(:class:`models.norms.BatchNorm`) with eps 1e-3: in train mode the running
+statistics move as ``new = 0.9 old + 0.1 batch`` with the *biased* batch
+variance, not torch's unbiased one.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sba_gan_tpu_torch.models.norms import BatchNorm
 
 
 def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -53,28 +55,6 @@ def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> tor
     return out.to(x.dtype)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm with flax's train-mode statistics (see the module doc)."""
-
-    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.9):
-        super().__init__(channels, eps=eps)
-        self.flax_momentum = momentum
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.flax_momentum
-            self.running_mean.mul_(m).add_((1.0 - m) * mean)
-            self.running_var.mul_(m).add_((1.0 - m) * var)
-            self.num_batches_tracked.add_(1)
-        scale = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
-
-
 class BasicConv2d(nn.Module):
     """conv (no bias) + BatchNorm (eps 1e-3) + relu."""
 
@@ -82,7 +62,7 @@ class BasicConv2d(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding,
                               bias=False)
-        self.bn = BatchNorm2d(cout)
+        self.bn = BatchNorm(cout, eps=1e-3)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -259,7 +239,7 @@ def init_weights(encoder: CNNEncoder, generator: torch.Generator) -> None:
         if isinstance(m, nn.Conv2d) and m is not encoder.emb_features:
             fan_in = m.weight[0].numel()
             m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
-        elif isinstance(m, BatchNorm2d):
+        elif isinstance(m, BatchNorm):
             m.reset_parameters()
     encoder.emb_features.weight.uniform_(-0.1, 0.1, generator=generator)
     encoder.emb_cnn_code.weight.uniform_(-0.1, 0.1, generator=generator)

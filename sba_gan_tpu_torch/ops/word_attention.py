@@ -5,13 +5,19 @@ caption's words.
     P       = softmax(scores) over words
     context = P @ S                       (QL x D)
 
-:func:`word_attention` is the wrapper.  On CUDA tensors it launches the
-hand-written kernel ``csrc/word_attention.cu`` (the port of the JAX
-package's Pallas ``_attn_kernel``) or raises; on CPU tensors it runs
+:func:`word_attention` is the wrapper, differentiable in ``query`` and
+``source`` through :class:`WordAttention`.  Its forward, on CUDA tensors,
+launches the hand-written kernel ``csrc/word_attention.cu`` (the port of
+the JAX package's Pallas ``_attn_kernel``) or raises; on CPU tensors it runs
 :func:`word_attention_plain`, the same function in plain PyTorch.  The
 kernel takes the padding mask itself and builds the additive bias inside
-(one launch a call).  The forward is all that serving needs, so the kernel has no backward yet and
-the wrapper refuses CUDA inputs that require grad.
+(one launch a call).  The backward is the JAX package's ``_bwd`` (XLA math
+there, no Pallas kernel), the same ``bmm`` and elementwise code on both
+devices, from the saved query, source and P:
+
+    dP = dCtx S^T (+ the cotangent of P)
+    dZ = P * (dP - sum_t dP * P)
+    dQ = dZ S,   dS = dZ^T Q + P^T dCtx
 """
 
 from __future__ import annotations
@@ -87,9 +93,6 @@ def _check(query, source, pad_mask):
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.requires_grad:
-            raise RuntimeError("the CUDA word-attention kernel has no backward "
-                               "yet; call it under torch.inference_mode()")
 
 
 def _launch(query, source, pad_mask):
@@ -113,6 +116,44 @@ def _launch(query, source, pad_mask):
     return ctx, probs
 
 
+def word_attention_backward(query, source, p, d_ctx, d_p=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dQ, dS) for the cotangents ``d_ctx`` (B, QL, D) of the context and
+    ``d_p`` (B, QL, T) of P; either may be None (no gradient flows there)."""
+    if d_ctx is None:
+        d_ctx = torch.zeros_like(query)
+    dp = torch.bmm(d_ctx, source.transpose(1, 2))
+    if d_p is not None:
+        dp = dp + d_p
+    dz = p * (dp - (dp * p).sum(dim=2, keepdim=True))
+    dq = torch.bmm(dz, source)
+    ds = torch.bmm(dz.transpose(1, 2), query) + torch.bmm(p.transpose(1, 2), d_ctx)
+    return dq, ds
+
+
+class WordAttention(torch.autograd.Function):
+    """Forward: the kernel on CUDA, the plain version on the CPU; backward:
+    :func:`word_attention_backward` on both."""
+
+    @staticmethod
+    def forward(ctx, query, source, pad_mask):
+        ctx.set_materialize_grads(False)
+        if query.device.type == "cpu":
+            context, p = word_attention_plain(query, source, pad_bias(pad_mask, source))
+        elif query.device.type == "cuda":
+            context, p = _launch(query, source, pad_mask)
+        else:
+            raise ValueError(f"unsupported device {query.device}")
+        ctx.save_for_backward(query, source, p)
+        return context, p
+
+    @staticmethod
+    def backward(ctx, d_ctx, d_p):
+        query, source, p = ctx.saved_tensors
+        dq, ds = word_attention_backward(query, source, p, d_ctx, d_p)
+        return dq, ds, None
+
+
 def word_attention(
     query: torch.Tensor,
     source: torch.Tensor,
@@ -124,15 +165,12 @@ def word_attention(
     source:   (B, T, D) float32 projected word embeddings.
     pad_mask: (B, T) bool, True at padding, or None.
 
-    Returns (context (B, QL, D), attn (B, QL, T)), float32.  CUDA tensors go
-    to the kernel (which counts its launches in ``word_attention.launches``),
-    CPU tensors to :func:`word_attention_plain`.
+    Returns (context (B, QL, D), attn (B, QL, T)), float32, differentiable in
+    query and source.  CUDA tensors go to the kernel (which counts its
+    launches in ``word_attention.launches``), CPU tensors to
+    :func:`word_attention_plain`.
     """
-    if query.device.type == "cpu":
-        return word_attention_plain(query, source, pad_bias(pad_mask, source))
-    if query.device.type != "cuda":
-        raise ValueError(f"unsupported device {query.device}")
-    return _launch(query, source, pad_mask)
+    return WordAttention.apply(query, source, pad_mask)
 
 
 word_attention.launches = 0

@@ -25,6 +25,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
+from sba_gan_tpu_torch.config import require_float32
 from sba_gan_tpu_torch.losses.damsm import sent_loss, words_loss
 from sba_gan_tpu_torch.models.inception import CNNEncoder, HEADS
 from sba_gan_tpu_torch.models.inception import init_weights as init_image_weights
@@ -44,6 +45,7 @@ class DAMSMModels(NamedTuple):
 def build_damsm_models(cfg, n_words: int, seed: Optional[int] = None) -> DAMSMModels:
     """The text encoder and the Inception CNNEncoder of ``cfg``, on the CPU;
     with ``seed``, random weights drawn from it."""
+    require_float32(cfg)
     models = DAMSMModels(
         text_encoder=build_text_encoder(cfg, n_words),
         image_encoder=CNNEncoder(nef=cfg.TEXT.EMBEDDING_DIM,

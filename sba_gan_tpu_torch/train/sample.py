@@ -13,6 +13,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sba_gan_tpu_torch.config import require_float32
 from sba_gan_tpu_torch.models.blocks import init_weights
 from sba_gan_tpu_torch.models.generator import GNet, build_generator
 from sba_gan_tpu_torch.models.text_rnn import RNNEncoder
@@ -54,6 +55,7 @@ class Sampler:
                     weights: Optional[str] = None, device="cuda") -> "Sampler":
         """Models of ``cfg``: random weights made from ``seed``, or the
         weights of an ``.npz`` file (see :mod:`utils.weights`)."""
+        require_float32(cfg)
         dev = resolve_device(device)
         generator = build_generator(cfg)
         text_encoder = build_text_encoder(cfg, n_words)

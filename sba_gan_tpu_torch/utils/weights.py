@@ -2,10 +2,12 @@
 
 The JAX package keeps its variables as nested dicts in Flax tree layout
 (``CANet_0/Dense_0/kernel`` ...).  These functions turn them, as numpy
-arrays, into ``state_dict``s of the port's :class:`GNet`,
+arrays, into ``state_dict``s of the port's :class:`GNet`, ``DNet64/128/256``,
 :class:`RNNEncoder` and :class:`CNNEncoder`, whose module names are the
-reference G_NET / RNN_ENCODER / torchvision Inception-v3 state-dict keys.  The map is the inverse of the reference-key
-to Flax-path map that the JAX package uses to read reference checkpoints:
+reference G_NET / D_NET / RNN_ENCODER / torchvision Inception-v3 state-dict
+keys.  Apart from the discriminators, which the JAX package has no reader
+for, the map is the inverse of the reference-key to Flax-path map that the
+JAX package uses to read reference checkpoints:
 
 * conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
 * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
@@ -176,6 +178,74 @@ def cnn_encoder_state_dict(params: Mapping, batch_stats: Mapping
                 sd[name[: -len("running_mean")] + "num_batches_tracked"] = (
                     torch.zeros((), dtype=torch.long))
     return sd
+
+
+_D_STAGES = {"down32": "img_code_s32", "block32": "img_code_s32_1",
+             "down64": "img_code_s64", "block64_1": "img_code_s64_1",
+             "block64_2": "img_code_s64_2"}
+# a block's conv and BN inside the reference's Sequential: (conv, BN) index
+_D_BLOCK = {"Conv_0": "0", "Conv3x3_0": "0", "BatchNorm_0": "1"}
+
+
+def d_net_key(path: Tuple[str, ...]) -> str:
+    """Port key of one Flax DNet64/128/256 path, e.g.
+    ('backbone', 'DownBlock_1', 'Conv_0', 'kernel') -> 'img_code_s16.5.weight'.
+    Raises KeyError for a path it does not know."""
+    top, leaf = path[0], path[-1]
+    name = "weight" if leaf == "kernel" else _BN.get(leaf, leaf)
+    try:
+        if top == "backbone":
+            if path[1] == "Conv_0":
+                return "img_code_s16.0.weight"
+            k = _index(path[1])  # DownBlock_k: conv at 2 + 3k, BN at 3 + 3k
+            return f"img_code_s16.{2 + 3 * k + int(_D_BLOCK[path[2]])}.{name}"
+        if top in _D_STAGES:
+            return f"{_D_STAGES[top]}.{_D_BLOCK[path[1]]}.{name}"
+        if top in ("cond_head", "uncond_head"):
+            head = "COND_DNET" if top == "cond_head" else "UNCOND_DNET"
+            if path[1] == "Conv_0":
+                return f"{head}.outlogits.0.{_LIN[leaf]}"
+            if top == "cond_head" and path[1] == "Block3x3LeakRelu_0":
+                return f"{head}.jointConv.{_D_BLOCK[path[2]]}.{name}"
+    except (KeyError, IndexError, ValueError):
+        pass
+    raise KeyError(f"no port key for Flax DNet path {'/'.join(path)}")
+
+
+def d_net_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax DNet64/128/256 ``params`` + ``batch_stats`` -> the port's DNet
+    state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats):
+        for key, value in flatten_tree(tree).items():
+            path = tuple(key.split("/"))
+            name = d_net_key(path)
+            if name in sd:
+                raise KeyError(f"two Flax paths map to {name}")
+            sd[name] = flax_leaf_to_torch(path, value)
+            if name.endswith(".running_mean"):
+                sd[name[: -len("running_mean")] + "num_batches_tracked"] = (
+                    torch.zeros((), dtype=torch.long))
+    return sd
+
+
+def gan_state_from_jax(state: Mapping) -> Dict[str, Any]:
+    """A JAX ``GANTrainState`` as nested numpy dicts (``g`` with ``params``
+    and ``batch_stats``, ``g_ema``, ``ds`` a sequence of ``params`` +
+    ``batch_stats``, ``text`` and ``image`` variables) -> the port's state
+    dicts: ``generator``, ``g_ema`` (G's parameters only), ``discriminators``
+    (a list), ``text_encoder`` and ``image_encoder``.  Optimizer moments are
+    not carried."""
+    g_ema = g_net_state_dict(state["g_ema"], {})
+    return {
+        "generator": g_net_state_dict(state["g"]["params"], state["g"]["batch_stats"]),
+        "g_ema": g_ema,
+        "discriminators": [d_net_state_dict(d["params"], d["batch_stats"])
+                           for d in state["ds"]],
+        "text_encoder": rnn_encoder_state_dict(state["text"]["params"]),
+        "image_encoder": cnn_encoder_state_dict(state["image"]["params"],
+                                                state["image"]["batch_stats"]),
+    }
 
 
 def read_npz(path: str) -> Tuple[Dict, Dict, Dict]:

@@ -7,7 +7,9 @@ machine with PyTorch and the CUDA toolkit alone:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerance rtol 1e-5, atol 1e-5 for word attention: float32 on both sides,
-sums in another order.  The DAMSM kernels (K1-K3) sum over D and R through
+sums in another order; rtol 1e-4 / atol 1e-4 for its gradients through the
+autograd Function (kernel forward, ``bmm`` backward) against autograd of
+the plain version.  The DAMSM kernels (K1-K3) sum over D and R through
 three softmaxes: rtol 1e-4 / atol 1e-4 on sim, and rtol 1e-3 / atol 1e-3
 times the largest entry on the gradients (their products run on the
 tensor cores in 3xTF32, which keeps float32 accuracy).
@@ -99,8 +101,38 @@ def test_word_attention_refuses_what_it_does_not_take(cuda):
     q33, s33, _ = _inputs(cuda, 1, 8, 33, 8, None)
     with pytest.raises(ValueError):
         wa.word_attention(q33, s33, None)
-    with pytest.raises(RuntimeError):
-        wa.word_attention(q.requires_grad_(), s, pad)
+    # an input that needs a gradient is taken: the backward is word_attention_backward
+    ctx, _ = wa.word_attention(q.requires_grad_(), s, pad)
+    assert ctx.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ql,t,d,lens", [
+    (2, 4096, 18, 32, [18, 5]),  # the GAN step's stage 2 at a small batch
+    (3, 4133, 25, 32, [25, 1, 0]),  # ragged QL, all-padding row
+    (2, 77, 7, 16, None),
+])
+def test_word_attention_autograd_matches_plain(cuda, b, ql, t, d, lens):
+    """K4 forward with the backward of the Function against autograd
+    through the plain version, with cotangents on the context and on P."""
+    q, s, pad = _inputs(cuda, b, ql, t, d, lens, seed=ql + t)
+    gen = torch.Generator().manual_seed(1)
+    d_ctx = torch.randn((b, ql, d), generator=gen).to(cuda)
+    d_p = torch.randn((b, ql, t), generator=gen).to(cuda)
+    qk, sk = q.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    before = wa.word_attention.launches
+    ctx, att = wa.word_attention(qk, sk, pad)
+    ((ctx * d_ctx).sum() + (att * d_p).sum()).backward()
+    torch.cuda.synchronize()
+    assert wa.word_attention.launches == before + 1  # the backward launches no K4
+    qp, sp = q.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    ctx_p, att_p = wa.word_attention_plain(qp, sp, wa.pad_bias(pad, s))
+    ((ctx_p * d_ctx).sum() + (att_p * d_p).sum()).backward()
+    torch.testing.assert_close(ctx, ctx_p, **TOL)
+    torch.testing.assert_close(att, att_p, **TOL)
+    grad_tol = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(qk.grad, qp.grad, **grad_tol)
+    torch.testing.assert_close(sk.grad, sp.grad, **grad_tol)
 
 
 def _damsm_inputs(cuda, b, t, r, d, seed=0):

@@ -23,7 +23,8 @@ import pytest
 from _torch_parity import jax_generator_and_vars, tiny_cfgs
 from sba_gan_tpu.models.text_rnn import RNNEncoder as JaxRNNEncoder
 from sba_gan_tpu.train.gan import GANModels, make_sample_fn
-from sba_gan_tpu_torch import pretrain
+from sba_gan_tpu_torch import bench, pretrain
+from sba_gan_tpu_torch import main as gan_main
 from sba_gan_tpu_torch.data.vocab import synthetic_vocab
 from sba_gan_tpu_torch.serving.app import build_service, make_wsgi_app, main
 from sba_gan_tpu_torch.train.sample import Sampler
@@ -168,3 +169,7 @@ def test_entry_points_default_to_cuda(tmp_path):
               str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         pretrain.main(["--synthetic", "--output_dir", str(tmp_path / "pretrain")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gan_main.main(["--synthetic", "--output_dir", str(tmp_path / "gan")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main([])
