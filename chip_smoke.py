@@ -66,6 +66,21 @@ and nothing of JAX.  Phases, each printing one line or more:
 12. the ``kernels`` JSON line (with each kernel's launches in the GAN step),
    then the device JSON line last.
 
+Under ``JAX.DTYPE`` and ``LOSS_DTYPE`` bfloat16 (the JAX package's
+accelerator setting), beside the float32 phases: each kernel's bfloat16
+instantiation against its plain bfloat16 version at the float32 rows'
+shapes and inputs (K4 at B 1 QL 128^2 T 25 and B 128 QL 64^2 and 128^2 T
+18; K1-K3 at B 32 T 20 and B 128 T 18), the plain float32 result printed
+beside, each at least ten times closer to plain bfloat16 than that is to
+float32 (after step 4); one bfloat16 generation, card against CPU (after
+step 6); one full-width bfloat16 DAMSM train step, card against CPU, K1-K3
+launched in bfloat16 (after step 7); one full-width bfloat16 GAN step
+(batch 8) against the CPU's float64 step of step 9, with K4 2, K1 1, K2 1,
+K3 0 bfloat16 launches (after step 9); and ``bench --dtype bfloat16`` at
+batch 128 (after step 10).  The kernels line lists every kernel twice,
+its float32 entry and its ``_bf16`` entry, whose launches are those of
+the bfloat16 GAN step (K3: the bfloat16 pretrain step).
+
 Any failure raises, and the script exits non-zero.  Without CUDA it exits
 non-zero and prints no result.
 """
@@ -89,6 +104,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
+BF16 = torch.bfloat16
 SEED = 0
 N_WORDS = 5450  # the CUB vocabulary
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -419,6 +436,7 @@ def phase_pretrain_step(cfg, batch_size):
     if not (errs["logs"] <= PRETRAIN_TOL["logs"] and worst_grad <= PRETRAIN_TOL["grads"]
             and errs["stats"] <= PRETRAIN_TOL["stats"]):
         raise AssertionError(f"pretrain step: card and CPU disagree beyond {PRETRAIN_TOL}")
+    return runs
 
 
 def phase_pretrain_cli(cfg_path, out):
@@ -663,6 +681,17 @@ def _kernel_wrappers():
             "damsm_sim_dimg": dsim.damsm_sim_dimg, "damsm_sim_dwords": dsim.damsm_sim_dwords}
 
 
+def reset_launches(wrappers) -> None:
+    """Every count of the wrappers to 0: all launches and the bfloat16 ones."""
+    for fn in wrappers.values():
+        fn.launches = fn.bf16_launches = 0
+
+
+def read_launches(wrappers, bf16: bool = False) -> dict:
+    """{wrapper: launches}, of the bfloat16 instantiations with ``bf16``."""
+    return {k: fn.bf16_launches if bf16 else fn.launches for k, fn in wrappers.items()}
+
+
 def gan_step_inputs(seed=SEED, batch_size=8):
     """bird_style at WORDS_NUM 18: the config, random models from ``seed``
     (random running statistics in the eval-mode Inception), one synthetic
@@ -710,13 +739,12 @@ def gan_step_run(cfg, models, batch, z, eps, device, dtype=torch.float32):
     step = GANStep(cfg, state)
     args = ([i.to(device, dtype) for i in batch.imgs], batch.captions.to(device),
             batch.cap_lens, batch.class_ids.to(device))
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     t0 = time.perf_counter()
     logs = step(*args, z=z.to(device, dtype), eps=eps.to(device, dtype))
     logs = {k: float(v) for k, v in logs.items()}
     seconds = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = read_launches(wrappers)
     nets = {"G": state.generator, **{f"D{i}": d for i, d in enumerate(state.discriminators)}}
     grads = {f"{k}.{n}": p.grad.cpu().double() for k, m in nets.items()
              for n, p in m.named_parameters()}
@@ -811,14 +839,12 @@ def damsm_grad_run(cfg, models, batch, device, dtype=torch.float32):
     with torch.no_grad():
         words, sent = step.state.text_encoder(captions, batch.cap_lens)
     img = batch.imgs[-1].to(device, dtype).requires_grad_(True)
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     w_loss, s_loss = step.damsm_loss(img, words, sent, batch.cap_lens,
                                      batch.class_ids.to(device))
     (grad,) = torch.autograd.grad(w_loss + s_loss, img)
     return dict(logs={"w_loss": float(w_loss.detach()), "s_loss": float(s_loss.detach())},
-                grad=grad.cpu().double(),
-                launches={k: fn.launches for k, fn in wrappers.items()})
+                grad=grad.cpu().double(), launches=read_launches(wrappers))
 
 
 def gan_step_readings(cfg, runs) -> dict:
@@ -899,6 +925,15 @@ def gan_step_runs(seed=SEED, batch_size=8):
     return cfg, runs
 
 
+def gan_step_f64_runs(seed=SEED, batch_size=8):
+    """The CPU's still-D float64 step and DAMSM terms' image gradient alone,
+    as :func:`gan_step_runs` makes them."""
+    cfg, models, batch, z, eps = gan_step_inputs(seed, batch_size)
+    return {"cpu64_still": gan_step_run(still_ds(cfg), models, batch, z, eps, "cpu",
+                                        torch.float64),
+            "damsm": {"cpu64": damsm_grad_run(cfg, models, batch, "cpu", torch.float64)}}
+
+
 def phase_gan_step(batch_size=8):
     """One full-width GAN train step on the card against the CPU
     (:func:`gan_step_runs`), held to the bounds above; the card's launches
@@ -926,7 +961,7 @@ def phase_gan_step(batch_size=8):
                 if "cuda" in k else none)
         if run["launches"] != want:
             raise AssertionError(f"GAN step {k}: launches {run['launches']} (want {want})")
-    return runs["cuda"]["launches"]
+    return runs["cuda"]["launches"], {**runs, "damsm": dm}
 
 
 def phase_gan_bench():
@@ -1022,6 +1057,430 @@ def phase_gan_cli(damsm_model_dir, out, batch_size=32):
     return calls
 
 
+# ---------------------------------------------------------------------------
+# bfloat16: JAX.DTYPE and JAX.LOSS_DTYPE bfloat16, the JAX package's
+# accelerator setting
+# ---------------------------------------------------------------------------
+
+def _gap(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def word_attention_bf16_case(b, ql, t, d, lens, seed, reps=None, case=None):
+    """K4's bfloat16 instantiation (bfloat16 query and source) against its
+    plain bfloat16 version on the same inputs, with the plain float32 result
+    of the unrounded inputs beside it (the bfloat16 gap).  Both sides round
+    each P to bfloat16 for the context product; a P computed in another
+    order can round to the neighbouring value, which moves the context by
+    one rounding of P (2^-8) times a source value: atol 2^-8 max|S| + 1e-5 on
+    the context, KERNEL_TOL on P.  The kernel must also be at least ten
+    times closer to the plain bfloat16 result than that is to float32."""
+    from sba_gan_tpu_torch.ops import word_attention as wa
+
+    gen = torch.Generator().manual_seed(seed)
+    q32 = torch.randn((b, ql, d), generator=gen).cuda()
+    s32 = torch.randn((b, t, d), generator=gen).cuda()
+    q, s = q32.to(BF16), s32.to(BF16)
+    pad = (torch.arange(t)[None, :] >= torch.tensor(lens)[:, None]).cuda()
+    bias = wa.pad_bias(pad, s)
+    ctx, att = wa.word_attention(q, s, pad)
+    torch.cuda.synchronize()
+    ctx_p, att_p = wa.word_attention_plain(q, s, bias)
+    ctx_f, att_f = wa.word_attention_plain(q32, s32, bias)
+    ctx_tol = dict(rtol=1e-5, atol=2.0 ** -8 * s.float().abs().max().item() + 1e-5)
+    err = {"ctx": _gap(ctx, ctx_p), "att": _gap(att, att_p)}
+    gap = {"ctx": _gap(ctx_p, ctx_f), "att": _gap(att_p, att_f)}
+    row = {"shape": f"B{b} QL{ql} T{t} D{d}", "dtype": "bfloat16",
+           "max_abs_err": max(err.values()), "max_abs_err_by_output": err,
+           "plain_bf16_vs_plain_f32": gap, "ctx_tol": ctx_tol}
+
+    def check():
+        torch.testing.assert_close(ctx, ctx_p, **ctx_tol)
+        torch.testing.assert_close(att, att_p, **KERNEL_TOL)
+        if not all(10 * err[k] <= gap[k] for k in err):
+            raise AssertionError(f"word_attention bf16 {row['shape']}: kernel {err} is not "
+                                 f"ten times closer to plain bf16 than plain bf16 to f32 "
+                                 f"{gap}")
+
+    bias16 = bias.to(BF16)[:, None, :]
+
+    def library():  # three calls, as the float32 row's
+        p = torch.softmax(torch.baddbmm(bias16, q, s.transpose(1, 2)).float(), -1)
+        return torch.bmm(p.to(BF16), s)
+
+    nbytes = 2 * (b * ql * d + b * t * d) + b * t + 4 * (b * ql * d + b * ql * t)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * b * ql * t * d / BF16_FLOPS_PER_S * 1e3
+    kernel = lambda: wa.word_attention(q, s, pad)  # noqa: E731
+    plain = lambda: wa.word_attention_plain(q, s, bias)  # noqa: E731
+    reps = reps or {}
+    row.update(kernel_ms=device_ms(kernel, **reps), plain_ms=device_ms(plain, **reps),
+               library_ms=device_ms(library, **reps), bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               eager_ms=eager_ms(kernel))
+    say("kernel", name="word_attention", **({"case": case} if case else {}), **row)
+    check()
+    return row
+
+
+def phase_kernels_bf16():
+    """K4 in bfloat16 at the serving shape (B 1, QL 128^2, T 25) and at the
+    GAN step's (B 128, QL 64^2 and 128^2, T 18), from the seeds of the
+    float32 rows of the same shapes (:func:`phase_kernels`)."""
+    row = word_attention_bf16_case(1, 128 * 128, 25, 32, [11], seed=1)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    lens = torch.randint(4, 19, (128,), generator=gen).tolist()
+    lens[0], lens[-1] = 4, 18
+    gan_rows = []
+    for k, ql in enumerate((64 * 64, 128 * 128)):
+        gan_rows.append(word_attention_bf16_case(128, ql, 18, 32, lens, seed=6 + k,
+                                                 reps=dict(calls=5, replays=4),
+                                                 case="gan_step"))
+    return row, gan_rows
+
+
+# K1-K3 with mm_dtype bfloat16 against their plain bfloat16 versions: the
+# same rounding points, products of bfloat16 values exact in float32, sums
+# in another order; an intermediate (A2, dC, dS) computed in another order
+# can round to the neighbouring bfloat16 value, which moves one term of a
+# sum by 2^-8 of itself.  Read on the H100 at B32 T20 and B128 T18 over two
+# seeds: sim up to 9.2e-5, gradients up to 2.6e-3 of their largest entry
+# (K2 at B32, where such a term dominates an entry), against the plain
+# bfloat16-vs-float32 gap of 1.7e-3 to 1.9e-2 (the ten-times check below
+# is the sharp one); the bounds are about four times the readings.
+DAMSM_BF16_FWD_TOL = dict(rtol=1e-3, atol=1e-3)
+DAMSM_BF16_GRAD_RTOL = 1e-2
+DAMSM_BF16_SHAPES = ((32, 20, "pretrain"), (128, 18, "gan_step"))
+
+
+def damsm_bf16_case(b, t, seed, label, gamma1=4.0, gamma2=5.0):
+    """K1-K3's bfloat16 instantiations at B texts and images, T words, R 289,
+    D 256 against their plain bfloat16 versions, the plain float32 result
+    beside; each kernel must be at least ten times closer to plain bfloat16
+    than that is to float32.  Bound: the inputs' bytes (float32 in memory)
+    and the products' flops at the bf16 dense peak."""
+    from sba_gan_tpu_torch.ops import damsm_sim as ds
+
+    gen = torch.Generator().manual_seed(seed)
+    r, d = DAMSM_R, DAMSM_D
+    words = torch.randn((b, t, d), generator=gen).cuda()
+    img = torch.randn((b, r, d), generator=gen).cuda()
+    g = torch.randn((b, b), generator=gen).cuda()
+    lens = torch.randint(1, t + 1, (b,), generator=gen)
+    lens[0], lens[-1] = 1, t
+    lens_dev = lens.to(torch.int32).cuda()
+    n_words = int(lens.sum())
+    mm = dict(mm_dtype=BF16)
+    kernels = {
+        "damsm_sim_fwd": (lambda: ds.launch_fwd(words, img, lens_dev, gamma1, gamma2, BF16),
+                          lambda dt: ds.damsm_sim_plain(words, img, lens_dev, gamma1,
+                                                        gamma2, dt),
+                          lambda: ds.damsm_sim_fwd(words, img, lens, gamma1, gamma2, **mm),
+                          4, 4 * (b * t * d + b * r * d + b + b * b)),
+        "damsm_sim_dimg": (lambda: ds.launch_dimg(words, img, lens_dev, g, gamma1, gamma2,
+                                                  BF16),
+                           lambda dt: ds.damsm_sim_dimg_plain(words, img, lens_dev, g,
+                                                              gamma1, gamma2, dt),
+                           lambda: ds.damsm_sim_dimg(words, img, lens, g, gamma1, gamma2,
+                                                     **mm),
+                           10, 4 * (b * t * d + 2 * b * r * d + b + b * b)),
+        "damsm_sim_dwords": (lambda: ds.launch_dwords(words, img, lens_dev, g, gamma1,
+                                                      gamma2, BF16),
+                             lambda dt: ds.damsm_sim_dwords_plain(words, img, lens_dev, g,
+                                                                  gamma1, gamma2, dt),
+                             lambda: ds.damsm_sim_dwords(words, img, lens, g, gamma1,
+                                                         gamma2, **mm),
+                             8, 4 * (2 * b * t * d + b * r * d + b + b * b)),
+    }
+    rows, failed = {}, []
+    for name, (kernel, plain, public, flops_per, nbytes) in kernels.items():
+        wrapper = getattr(ds, name)
+        before = wrapper.bf16_launches
+        got = public()
+        torch.cuda.synchronize()
+        if wrapper.bf16_launches != before + 1:
+            raise AssertionError(f"{name}: the bfloat16 instantiation did not launch")
+        want, want_f32 = plain(BF16), plain(torch.float32)
+        err, gap = _gap(got, want), _gap(want, want_f32)
+        scale = want.abs().max().item()
+        tol = (DAMSM_BF16_FWD_TOL if name == "damsm_sim_fwd" else
+               dict(rtol=DAMSM_BF16_GRAD_RTOL, atol=DAMSM_BF16_GRAD_RTOL * scale))
+        flops = flops_per * b * n_words * r * d
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        rows[name] = {"shape": f"B{b} T{t} R{r} D{d}", "dtype": "bfloat16",
+                      "words": n_words, "max_abs_err": err, "ref_max_abs": scale,
+                      "plain_bf16_vs_plain_f32": gap, "tol": tol}
+        try:
+            torch.testing.assert_close(got, want, **tol)
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+        if not 10 * err <= gap:
+            failed.append(f"{name}: kernel {err} is not ten times closer to plain bf16 "
+                          f"than plain bf16 to f32 {gap}")
+        if name == "damsm_sim_dwords":
+            pad = torch.arange(t)[None, :] >= lens[:, None]
+            if got[pad.cuda()].abs().max().item() != 0.0:
+                failed.append("d_words is not zero at padding")
+        reps = dict(calls=3, replays=3) if b >= 128 else dict(calls=5, replays=4)
+        rows[name].update(
+            kernel_ms=device_ms(kernel, **reps),
+            plain_ms=device_ms(lambda: plain(BF16), **reps),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=None, eager_ms=eager_ms(kernel, iters=5))
+        say("kernel", name=name, case=label, **rows[name])
+    if failed:
+        raise AssertionError("DAMSM kernels in bf16: " + "; ".join(failed))
+    return rows
+
+
+def phase_damsm_kernels_bf16():
+    """K1-K3 in bfloat16 on the inputs of their float32 rows
+    (:func:`phase_damsm_kernels`, the same seeds)."""
+    return {label: damsm_bf16_case(b, t, seed=100 + k, label=label)
+            for k, (b, t, label) in enumerate(DAMSM_BF16_SHAPES)}
+
+
+def bf16_models(cfg, models):
+    """``cfg`` with JAX.DTYPE and LOSS_DTYPE bfloat16, and the models it
+    builds (``train.gan.build_models``) holding the weights of ``models``."""
+    from sba_gan_tpu_torch.train.gan import build_models
+
+    cfg = copy.deepcopy(cfg)
+    cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = "bfloat16"
+    out = build_models(cfg, N_WORDS)
+    for dst, src in zip((*out[:3], *out.discriminators), (*models[:3], *models.discriminators)):
+        dst.load_state_dict(src.state_dict())
+    return cfg, out
+
+
+# The bfloat16 GAN step on the card (batch 8, Ds held still) against the
+# CPU's float64 step from the same weights, batch and noise.  Gradients as
+# |g - g64| / |g64| over all of a network's parameters at once (the largest
+# of the Ds): per tensor, the biases of BatchNorms that follow a sum of
+# cotangents are rounding noise in bfloat16 (up to 1.9 of their norm).
+# Readings over seeds 0-2 (scripts/torch_gan_step_readings.py --dtype
+# bfloat16, H100): the CPU's own bfloat16 step against float64 at most
+# logs 1.01e-2, statistics 1.02e-2, D 0.205, G 0.316, DAMSM image gradient
+# 0.557; the card's 7.8e-3, 1.09e-2, 0.206, 0.307, 0.559.  Bounds: about
+# twice the CPU's.  ReLU kinks that bfloat16 rounding moves make the image
+# gradient through Inception about half noise, on the CPU as on the card
+# (scripts/torch_bf16_grad_noise.py: 3.3% through the first layer, 56%
+# through Mixed_6e, outputs within 0.3%), so that reading cannot see K2,
+# whose own bfloat16 rows hold it to 1e-2 of its largest entry.
+GAN_BF16_TOL = {"logs": 2e-2, "stats": 2e-2, "d_grads": 0.4, "g_grads": 0.6,
+                "damsm_img_grad": 1.1}
+
+
+def net_grad_errs(got, want) -> dict:
+    """|g_got - g_want| / |g_want| over all the parameters of each network:
+    the largest of the Ds, and G."""
+    def err(prefix):
+        names = [n for n in want["grads"] if n.startswith(prefix)]
+        a = torch.cat([got["grads"][n].flatten() for n in names])
+        b = torch.cat([want["grads"][n].flatten() for n in names])
+        return _norm_rel(a, b)
+    n_ds = len({n.split(".")[0] for n in want["grads"] if n.startswith("D")})
+    return {"d_grads": max(err(f"D{i}.") for i in range(n_ds)), "g_grads": err("G.")}
+
+
+def gan_step_bf16_readings(runs, seed=SEED, batch_size=8, cpu=False):
+    """The still-D bfloat16 step and the DAMSM terms' image gradient in
+    bfloat16 on the card (and on the CPU with ``cpu``), each against the
+    CPU's float64 runs of ``runs`` (:func:`gan_step_runs` of the same seed):
+    logs, statistics, D and G gradients, DAMSM image gradient; launches."""
+    from sba_gan_tpu_torch.train.gan import log_keys
+
+    cfg, models, batch, z, eps = gan_step_inputs(seed, batch_size)
+    cfg16, models16 = bf16_models(cfg, models)
+    still16 = still_ds(cfg16)
+    want, want_dm = runs["cpu64_still"], runs["damsm"]["cpu64"]
+    keys = log_keys(cfg.TREE.BRANCH_NUM)
+    stats = [n for n in want["tensors"] if n.endswith(("running_mean", "running_var"))]
+    out = {}
+    for device in ("cuda", "cpu") if cpu else ("cuda",):
+        wrappers = _kernel_wrappers()
+        got = gan_step_run(still16, models16, batch, z, eps, device)
+        bf16_launches = read_launches(wrappers, bf16=True)
+        dm = damsm_grad_run(cfg16, models16, batch, device)
+        e = grad_errs(got, want)
+        e.update(net_grad_errs(got, want))
+        out[device] = {
+            "logs": max(abs(got["logs"][k] - want["logs"][k]) / abs(want["logs"][k])
+                        for k in keys),
+            "stats": max(_rel_err(got["tensors"][n], want["tensors"][n].float())
+                         for n in stats),
+            "d_grads": e["d_grads"], "g_grads": e["g_grads"],
+            "damsm_img_grad": _norm_rel(dm["grad"], want_dm["grad"]),
+            "worst_grads": e["worst"], "launches": got["launches"],
+            "bf16_launches": bf16_launches, "damsm_launches": dm["launches"],
+            "logs_bf16": got["logs"], "seconds": got["seconds"]}
+    return out
+
+
+def phase_gan_step_bf16(runs, batch_size=8):
+    """One full-width bfloat16 GAN step on the card against the CPU's float64
+    step (``runs`` from :func:`phase_gan_step`): within GAN_BF16_TOL; K4 twice,
+    K1 and K2 once, K3 never, all of them bfloat16 launches."""
+    r = gan_step_bf16_readings(runs, SEED, batch_size)["cuda"]
+    say("gan_step_bf16", batch=batch_size, readings=r, tol=GAN_BF16_TOL)
+    bad = [k for k, tol in GAN_BF16_TOL.items() if not r[k] <= tol]
+    if bad or not all(np.isfinite(v) for v in r["logs_bf16"].values()):
+        raise AssertionError(f"bf16 GAN step: card and CPU float64 disagree in {bad}")
+    if not r["launches"] == r["bf16_launches"] == GAN_STEP_LAUNCHES:
+        raise AssertionError(f"bf16 GAN step: launches {r['launches']}, bfloat16 "
+                             f"{r['bf16_launches']} (want {GAN_STEP_LAUNCHES})")
+    return r["bf16_launches"]
+
+
+# Card against CPU, both bfloat16, one full-width step or generation from
+# the same weights and inputs: each reading (relative, as the float32
+# phases') must lie within BF16_FACTOR times the same reading of the CPU's
+# bfloat16 run against its float32 run, i.e. the card's bfloat16 result is
+# no further from the CPU's than bfloat16 rounding itself moves the result.
+BF16_FACTOR = 2.0
+
+
+def _bf16_against(readings_card, readings_cpu, label):
+    bad = {k: (v, readings_cpu[k]) for k, v in readings_card.items()
+           if not v <= BF16_FACTOR * readings_cpu[k]}
+    if bad:
+        raise AssertionError(f"{label}: card bf16 against CPU bf16 beyond {BF16_FACTOR} "
+                             f"times CPU bf16 against CPU f32: {bad}")
+
+
+def phase_pretrain_step_bf16(cfg, batch_size, f32_runs):
+    """One full-width bfloat16 DAMSM train step on the card and on the CPU,
+    from the weights, batch and dropout mask of :func:`phase_pretrain_step`
+    (whose CPU float32 run is ``f32_runs["cpu"]``); K1-K3 launched, in
+    bfloat16."""
+    from sba_gan_tpu_torch.data.cub import SyntheticDataset
+    from sba_gan_tpu_torch.data.pipeline import collate
+    from sba_gan_tpu_torch.train.damsm import LOG_KEYS, DAMSMTrainer, build_damsm_models
+
+    cfg = copy.deepcopy(cfg)
+    cfg.TRAIN.BATCH_SIZE = batch_size
+    models = build_damsm_models(cfg, N_WORDS, seed=SEED)
+    cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = "bfloat16"
+    models16 = build_damsm_models(cfg, N_WORDS)
+    models16.text_encoder.load_state_dict(models.text_encoder.state_dict())
+    models16.image_encoder.load_state_dict(models.image_encoder.state_dict())
+    ds = SyntheticDataset(num_examples=batch_size, base_size=cfg.TREE.BASE_SIZE,
+                          branch_num=cfg.TREE.BRANCH_NUM, words_num=cfg.TEXT.WORDS_NUM,
+                          n_words=N_WORDS, seed=SEED)
+    batch = collate([ds[i] for i in range(batch_size)])
+    keep = models.text_encoder.dropout_mask(batch.captions,
+                                            torch.Generator().manual_seed(SEED + 2))
+    wrappers = _kernel_wrappers()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = DAMSMTrainer(cfg, copy.deepcopy(models16), device=device)
+        reset_launches(wrappers)
+        t0 = time.perf_counter()
+        logs = trainer.train_step(
+            batch.imgs[-1].to(device), batch.captions.to(device), batch.cap_lens,
+            batch.class_ids.to(device), keep_mask=keep.to(device))
+        logs = {k: float(v) for k, v in logs.items()}
+        grads = {f"text.{n}": p.grad for n, p in trainer.text_encoder.named_parameters()}
+        grads.update({f"image.{n}": p.grad for n, p in
+                      trainer.image_encoder.named_parameters() if p.grad is not None})
+        runs[device] = dict(logs=logs, grads=grads, seconds=time.perf_counter() - t0,
+                            stats={n: b for n, b in trainer.image_encoder.state_dict().items()
+                                   if n.endswith(("running_mean", "running_var"))},
+                            launches=read_launches(wrappers),
+                            bf16_launches=read_launches(wrappers, bf16=True))
+
+    def readings(got, want):
+        return {"logs": max(abs(got["logs"][k] - want["logs"][k]) / abs(want["logs"][k])
+                            for k in LOG_KEYS),
+                "grads": max(_norm_rel(g.cpu().double(), want["grads"][n].cpu().double())
+                             for n, g in got["grads"].items()),
+                "stats": max(_rel_err(v, want["stats"][n]) for n, v in got["stats"].items())}
+    card, cpu = readings(runs["cuda"], runs["cpu"]), readings(runs["cpu"], f32_runs["cpu"])
+    launches = runs["cuda"]["bf16_launches"]
+    say("pretrain_step_bf16", batch=batch_size, card_bf16_vs_cpu_bf16=card,
+        cpu_bf16_vs_cpu_f32=cpu, factor=BF16_FACTOR, logs_cuda=runs["cuda"]["logs"],
+        logs_cpu=runs["cpu"]["logs"], launches=runs["cuda"]["launches"],
+        bf16_launches=launches, step_s={k: v["seconds"] for k, v in runs.items()})
+    want = {"damsm_sim_fwd": 1, "damsm_sim_dimg": 1, "damsm_sim_dwords": 1,
+            "word_attention": 0}
+    if not (launches == runs["cuda"]["launches"] == want
+            and all(np.isfinite(v) for v in runs["cuda"]["logs"].values())):
+        raise AssertionError(f"bf16 pretrain step: launches {runs['cuda']['launches']}, "
+                             f"bfloat16 {launches} (want {want})")
+    _bf16_against(card, cpu, "bf16 pretrain step")
+    return launches
+
+
+def phase_generation_bf16(cfg, wordtoix):
+    """One bfloat16 generation (``eval_bird``, the slice's weights and
+    captions) on the card against the CPU in bfloat16 and float32: images and
+    maps; K4 launched twice, in bfloat16."""
+    from sba_gan_tpu_torch.data.vocab import encode_free_text
+    from sba_gan_tpu_torch.ops import word_attention as wa
+    from sba_gan_tpu_torch.train.sample import Sampler
+
+    cpu32 = Sampler.from_config(cfg, N_WORDS, seed=SEED, device="cpu")
+    random_bn_stats(cpu32.generator, torch.Generator().manual_seed(SEED + 1))
+    cfg16 = copy.deepcopy(cfg)
+    cfg16.JAX.DTYPE = "bfloat16"
+    samplers = {"cpu32": cpu32}
+    for key, device in (("cuda", "cuda"), ("cpu", "cpu")):
+        s = Sampler.from_config(cfg16, N_WORDS, device="cpu")
+        s.generator.load_state_dict(cpu32.generator.state_dict())
+        s.text_encoder.load_state_dict(cpu32.text_encoder.state_dict())
+        samplers[key] = Sampler(cfg16, s.generator, s.text_encoder, device=device)
+    captions = ["w17 w4031 w9 w250 w77 w3 w1200 w88 w5 w13 w402 w6", "w2 w5449 w31"]
+    ids, lens = encode_free_text(captions, wordtoix, cfg.TEXT.WORDS_NUM)
+    z, eps = cpu32.draw_noise(len(captions), SEED)
+    outs = {}
+    for key, sampler in samplers.items():
+        wa.word_attention.launches = wa.word_attention.bf16_launches = 0
+        outs[key] = sampler.with_noise(ids, lens, z, eps)
+        if key == "cuda":
+            launches = (wa.word_attention.launches, wa.word_attention.bf16_launches)
+
+    def readings(got, want):
+        names = ("img64", "img128", "img256", "map64", "map128")
+        return {n: float(np.linalg.norm(g - w) / np.linalg.norm(w))
+                for n, g, w in zip(names, got[0] + got[1], want[0] + want[1])}
+    card, cpu = readings(outs["cuda"], outs["cpu"]), readings(outs["cpu"], outs["cpu32"])
+    finite = all(np.isfinite(a).all() for a in outs["cuda"][0] + outs["cuda"][1])
+    say("generation_bf16", card_bf16_vs_cpu_bf16=card, cpu_bf16_vs_cpu_f32=cpu,
+        factor=BF16_FACTOR, launches=launches,
+        image_shapes=[list(f.shape) for f in outs["cuda"][0]])
+    if not (finite and launches == (2, 2)):
+        raise AssertionError(f"bf16 generation: finite {finite}, launches {launches}")
+    _bf16_against(card, cpu, "bf16 generation")
+    return {"word_attention": launches[1]}
+
+
+def phase_gan_bench_bf16():
+    """``python -m sba_gan_tpu_torch.bench --dtype bfloat16`` in this process
+    at batch 128: its line, then a summary; K4 2, K1 1, K2 1 launches a
+    step."""
+    from sba_gan_tpu_torch import bench
+
+    line = bench.main(["--dtype", "bfloat16"])
+    named = line["profile"]["hand_written_kernels"]
+    per_step = {k: named[k]["launches_per_step"] for k in GAN_KERNELS}
+    say("gan_bench_bf16", batch=line["batch"], dtype=line["dtype"],
+        out_of_memory=line["out_of_memory"], ms_per_step=line["ms_per_step"],
+        images_per_sec=line["value"], step_ms_median=line["step_ms_median"],
+        device_ms_per_step=line["profile"]["device_ms_per_step"],
+        launches_per_step=line["profile"]["launches_per_step"],
+        device_idle_share=line["profile"]["device_idle_share"],
+        peak_memory_bytes=line["peak_memory_bytes"], mfu=line["mfu"],
+        mfu_precision=line["mfu_precision"], precision=line["precision"],
+        kernel_launches_per_step=per_step,
+        kernel_ms_per_step={k: named[k]["device_ms_per_step"] for k in GAN_KERNELS})
+    if not line["finite"] or per_step != GAN_STEP_LAUNCHES or line["dtype"] != "bfloat16":
+        raise AssertionError(f"bf16 GAN bench: finite {line['finite']}, kernel launches "
+                             f"per step {per_step} (want {GAN_STEP_LAUNCHES})")
+    return line
+
+
 DAMSM_KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     "damsm_sim_fwd": ("sba_gan_tpu_torch/ops/csrc/damsm_sim.cu",
                       "sba_gan_tpu/ops/damsm_sim.py:157"),
@@ -1044,26 +1503,38 @@ def main() -> int:
     name, _ = phase_device()
     phase_build()
     rows, gan_rows = phase_kernels()
+    rows16 = phase_kernels_bf16()
     damsm_rows = phase_damsm_kernels()
+    damsm_rows16 = phase_damsm_kernels_bf16()
     cfg = preset("eval_bird")
     wordtoix, ixtoword = synthetic_vocab(N_WORDS)
     sampler = phase_slice(cfg, wordtoix)
     launches = phase_serve(cfg, sampler, wordtoix, ixtoword)
-    phase_pretrain_step(preset("DAMSM/bird"), batch_size=32)
+    launches16 = phase_generation_bf16(cfg, wordtoix)
+    pretrain_runs = phase_pretrain_step(preset("DAMSM/bird"), batch_size=32)
+    pretrain16 = phase_pretrain_step_bf16(preset("DAMSM/bird"), 32, pretrain_runs)
     with tempfile.TemporaryDirectory() as out:
         launches.update(phase_pretrain_cli(PRETRAIN_CFG, os.path.join(out, "damsm")))
-        gan_launches = phase_gan_step()
+        gan_launches, gan_runs = phase_gan_step()
+        gan_launches16 = phase_gan_step_bf16(gan_runs)
+        del gan_runs
         phase_gan_bench()
+        phase_gan_bench_bf16()
         phase_gan_cli(os.path.join(out, "damsm", "Model"), out)
 
     # the kernels line: K4 at the largest serving shape of one request,
-    # K1-K3 at the pretrain shape, with the GAN step's shapes beside
+    # K1-K3 at the pretrain shape, with the GAN step's shapes beside; then
+    # each in bfloat16, its launches those of the bfloat16 paths (the GAN
+    # step; K3 the pretrain step's; K4 the generation's beside)
+    gan_keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "eager_ms", "max_abs_err")
     main_row = next(r for r in rows if r["shape"] == "B1 QL16384 T25 D32")
     kernels = [{
         "name": "word_attention",
         "route": "cuda",
         "source": "sba_gan_tpu_torch/ops/csrc/word_attention.cu",
         "replaces": "sba_gan_tpu/ops/word_attention.py:65",
+        "dtype": "float32",
         "launches": launches["word_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + gan_rows),
         "ms": main_row["kernel_ms"],
@@ -1074,14 +1545,13 @@ def main() -> int:
         "shape": main_row["shape"],
         "eager_ms": main_row["eager_ms"],
         "gan_step_launches": gan_launches["word_attention"],
-        "gan_step": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms",
-                                        "bound_ms", "bound_by", "eager_ms", "max_abs_err")}
-                     for r in gan_rows],
+        "gan_step": [{k: r[k] for k in gan_keys} for r in gan_rows],
     }]
     for kname, (source, replaces) in DAMSM_KERNELS.items():
         row, gan = damsm_rows["pretrain"][kname], damsm_rows["gan_step"][kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "dtype": "float32",
             "launches": launches[kname],
             "max_abs_err": max(r[kname]["max_abs_err"] for r in damsm_rows.values()),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
@@ -1092,6 +1562,36 @@ def main() -> int:
             "gan_step": {k: gan[k] for k in ("shape", "kernel_ms", "plain_ms",
                                              "bound_ms", "bound_by", "eager_ms",
                                              "bound_tc_ms")},
+        })
+    row16, gan_rows16 = rows16
+    kernels.append({
+        "name": "word_attention_bf16", "route": "cuda",
+        "source": "sba_gan_tpu_torch/ops/csrc/word_attention.cu",
+        "replaces": "sba_gan_tpu/ops/word_attention.py:65", "dtype": "bfloat16",
+        "launches": gan_launches16["word_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in [row16] + gan_rows16),
+        "ms": row16["kernel_ms"], "plain_ms": row16["plain_ms"],
+        "bound_ms": row16["bound_ms"], "bound_by": row16["bound_by"],
+        "library_ms": row16["library_ms"], "shape": row16["shape"],
+        "eager_ms": row16["eager_ms"], "generation_launches": launches16["word_attention"],
+        "gan_step": [{k: r[k] for k in gan_keys} for r in gan_rows16],
+    })
+    for kname, (source, replaces) in DAMSM_KERNELS.items():
+        row, gan = damsm_rows16["pretrain"][kname], damsm_rows16["gan_step"][kname]
+        n = pretrain16[kname] if kname == "damsm_sim_dwords" else gan_launches16[kname]
+        kernels.append({
+            "name": f"{kname}_bf16", "route": "cuda", "source": source,
+            "replaces": replaces, "dtype": "bfloat16", "launches": n,
+            "launches_counted_in": ("bfloat16 pretrain step" if kname == "damsm_sim_dwords"
+                                    else "bfloat16 GAN step"),
+            "max_abs_err": max(r[kname]["max_abs_err"] for r in damsm_rows16.values()),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": row["shape"], "eager_ms": row["eager_ms"],
+            "pretrain_step_launches": pretrain16[kname],
+            "gan_step_launches": gan_launches16[kname],
+            "gan_step": {k: gan[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
+                                             "bound_by", "eager_ms", "max_abs_err")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,18 @@
 """Bench of the port's flagship GAN train step on one card.
 
-    python -m sba_gan_tpu_torch.bench [--device cuda]
+    python -m sba_gan_tpu_torch.bench [--device cuda] [--dtype float32|bfloat16]
 
 The workload of the JAX package's ``bench.py``: bird_style at BRANCH_NUM 3
 (64/128/256 images), GF_DIM 32, DF_DIM 64, Z_DIM 100, R_NUM 2,
 EMBEDDING_DIM 256, WORDS_NUM 18, gammas 4/5/10, lambda 5, Inception at
 299, the CUB vocabulary of 5450 words, batch 128; random weights from
-``SEED``, one fixed batch made on the card, float32 (TF32 at PyTorch's
-defaults, stated in the line).  It warms up for ``WARMUP`` steps, then
+``SEED``, one fixed batch made on the card.  ``--dtype`` sets ``JAX.DTYPE``
+and ``JAX.LOSS_DTYPE`` together: float32 (the default; TF32 at PyTorch's
+defaults, stated in the line) or bfloat16, the JAX package's accelerator
+setting (its ``bench.py`` on the TPU), in which the convolutions, linears
+and K4 compute in bfloat16 and K1/K2 round their products' operands to
+bfloat16, with float32 parameters, statistics and losses.  The line names
+the dtype and what precision each part ran at.  It warms up for ``WARMUP`` steps, then
 times one window of ``STEPS`` steps queued back to back and closed by one
 host read of the last step's ``errG`` (which depends on all of the step's
 work): images/s is ``STEPS * batch`` over that window.  CUDA events between
@@ -61,6 +66,7 @@ TINY = {  # the --device cpu smoke
 N_WORDS = 5450  # the CUB vocabulary
 REGIONS = 289  # 17 x 17 Inception regions
 TF32_FLOPS_PER_S = 495e12  # H100 SXM, dense
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense
 FP32_FLOPS_PER_S = 67e12
 FALLBACK_BATCHES = (96, 64, 32)
 STEPS = 20  # the timed window
@@ -261,12 +267,32 @@ def run(cfg, batch: int, device) -> Dict:
                hand_written_kernel_flops=custom)
     if cuda:
         seconds = window_s / STEPS
-        out.update(mfu=flops / seconds / TF32_FLOPS_PER_S,
-                   mfu_peak_flops_per_s=TF32_FLOPS_PER_S,
-                   mfu_precision="tf32 (H100 SXM dense peak; convolutions run TF32 when "
-                                 "cudnn.allow_tf32)",
+        if cfg.JAX.DTYPE == "bfloat16":
+            peak, name = BF16_FLOPS_PER_S, "bf16 (H100 SXM dense peak)"
+        else:
+            peak, name = TF32_FLOPS_PER_S, ("tf32 (H100 SXM dense peak; convolutions run "
+                                            "TF32 when cudnn.allow_tf32)")
+        out.update(mfu=flops / seconds / peak, mfu_peak_flops_per_s=peak,
+                   mfu_precision=name,
                    share_of_fp32_peak=flops / seconds / FP32_FLOPS_PER_S)
     return out
+
+
+def precision(cfg) -> Dict[str, str]:
+    """What precision each part of the step runs at under ``cfg``."""
+    if cfg.JAX.DTYPE == "bfloat16":
+        layers = "bfloat16 (float32 parameters cast at the call)"
+        k4 = "bfloat16 q and s, float32 scores and softmax, P rounded to bfloat16"
+    else:
+        layers = ("float32; convolutions TF32 when cudnn.allow_tf32, linears TF32 when "
+                  "cuda.matmul.allow_tf32")
+        k4 = "float32"
+    sim = ("bfloat16 operands, float32 accumulation" if cfg.JAX.LOSS_DTYPE == "bfloat16"
+           else "float32 (3xTF32)")
+    return {"convolutions_and_linears": layers,
+            "batchnorm_instance_norm": "float32 statistics and normalization",
+            "word_attention_k4": k4, "damsm_products_k1_k2": sim,
+            "losses": "float32", "parameters_adam_ema": "float32"}
 
 
 def measure(cfg, batch: int, device) -> Dict:
@@ -290,10 +316,13 @@ def measure(cfg, batch: int, device) -> Dict:
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="JAX.DTYPE and JAX.LOSS_DTYPE")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     cfg = cfg_from_dict(copy.deepcopy(FLAGSHIP if cuda else TINY))
+    cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = args.dtype
     batch = cfg.TRAIN.BATCH_SIZE
     result = measure(cfg, batch, device)
     if cuda:
@@ -303,7 +332,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     else:
         line = {"metric": "gan_train_step_images_per_sec_cpu_smoke",
                 "value": result["images_per_sec"], "unit": "images/sec", "device": "cpu"}
-    line.update(batch_asked=batch, **result,
+    line.update(batch_asked=batch, dtype=args.dtype, precision=precision(cfg), **result,
                 tf32={"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
                       "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32},
                 torch=torch.__version__)

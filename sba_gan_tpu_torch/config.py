@@ -7,10 +7,9 @@ preset of the repository loads unchanged.  The port reads ``TREE``,
 three learning rates, the RNN gradient clip, ``SMOOTH``, ``MIXING``,
 ``FLAG``, ``NET_E``; ``GRAD_ACCUM`` > 1 raises until it is ported),
 ``RNN_TYPE``, ``MODEL.TEXT_ENCODER`` / ``INCEPTION_INPUT``, and of the
-``JAX`` group only ``SEED``, ``DTYPE`` and ``LOSS_DTYPE`` (float32 only:
-the model builders refuse any other ``DTYPE`` through
-:func:`require_float32`, and bfloat16 ``LOSS_DTYPE`` raises, until the
-bf16 paths are ported).  The other ``JAX`` keys and the ``BENCH`` group
+``JAX`` group only ``SEED``, ``DTYPE`` and ``LOSS_DTYPE`` (float32 or
+bfloat16, as torch dtypes through :func:`compute_dtype` and
+:func:`loss_dtype`; any other value raises).  The other ``JAX`` keys and the ``BENCH`` group
 are accepted so that presets carrying them still load, and have no effect
 here.  In particular ``DAMSM_SIM_IMPL``, ``DAMSM_SIM_TILE``,
 ``DAMSM_GRID_CHUNKS``, ``DAMSM_FOLD_SOFTMAX``, ``DAMSM_CHUNKS``,
@@ -25,6 +24,7 @@ import copy
 import os
 from typing import Any, Dict
 
+import torch
 import yaml
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
@@ -223,12 +223,27 @@ def cfg_from_dict(d: Dict[str, Any], base: ConfigDict | None = None) -> ConfigDi
     return cfg
 
 
-def require_float32(cfg) -> None:
-    """Raise for a compute dtype the port does not have yet."""
-    if cfg.JAX.DTYPE != "float32":
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(key: str, value: str) -> torch.dtype:
+    if value not in _DTYPES:
         raise NotImplementedError(
-            f"JAX.DTYPE={cfg.JAX.DTYPE!r}: the port computes in float32 only; "
-            "bf16 compute is still to port (ROADMAP.md, queue 1, item 2)")
+            f"JAX.{key}={value!r}: the port computes in float32 or bfloat16; "
+            "other dtypes are not ported (ROADMAP.md, section 3)")
+    return _DTYPES[value]
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """``JAX.DTYPE`` as a torch dtype: what the models compute in (flax's
+    ``dtype=``; parameters stay float32)."""
+    return _dtype("DTYPE", cfg.JAX.DTYPE)
+
+
+def loss_dtype(cfg) -> torch.dtype:
+    """``JAX.LOSS_DTYPE`` as a torch dtype: the operands' dtype of the
+    products of the DAMSM similarity (``mm_dtype`` of K1-K3)."""
+    return _dtype("LOSS_DTYPE", cfg.JAX.LOSS_DTYPE)
 
 
 def preset(name: str) -> ConfigDict:

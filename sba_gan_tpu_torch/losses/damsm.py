@@ -6,10 +6,22 @@
 * :func:`words_loss`: the word-region similarity sim (B, B) of every (text,
   image) pair through :func:`ops.damsm_sim.damsm_sim` (kernels K1-K3 on the
   card, their plain versions on the CPU), then the same masking and the two
-  cross-entropies.  The kernels take any batch size.
+  cross-entropies.  The kernels take any batch size.  Words and regions are
+  cast to float32 first, as the JAX package casts them; ``mm_dtype``
+  (``JAX.LOSS_DTYPE``) is the dtype the kernels round the operands of their
+  products to.
 * :func:`own_image_attention`: the Eq. 8-9 attention of each text over its
   own image, (B, T, R), for the attention dump of the pretrain CLI; the
   losses never use it.
+
+Under ``LOSS_DTYPE: bfloat16`` the port follows the JAX package's kernel
+formulation (``DAMSM_SIM_IMPL: pallas``, the setting of its accelerator
+preset): only the operands of the similarity's matrix products are rounded
+to bfloat16, and the cosine's numerator, the norms and every softmax read
+float32 values.  The JAX package's dense XLA formulation
+(``DAMSM_SIM_IMPL: xla``) rounds elsewhere as well: it takes the numerator
+from bfloat16 words and context.  The port has no such path; which
+implementation runs is the tensors' device, not a key.
 """
 
 from __future__ import annotations
@@ -62,12 +74,14 @@ def sent_loss(cnn_code: torch.Tensor, rnn_code: torch.Tensor, labels: torch.Tens
 def words_loss(img_features: torch.Tensor, words_emb: torch.Tensor,
                labels: torch.Tensor, cap_lens: torch.Tensor,
                class_ids: Optional[torch.Tensor], gamma1: float = 4.0,
-               gamma2: float = 5.0, gamma3: float = 10.0
+               gamma2: float = 5.0, gamma3: float = 10.0,
+               mm_dtype: torch.dtype = torch.float32
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """img_features (B, R, D) regions, words_emb (B, T, D), cap_lens (B,)
     real word counts in [1, T] (any device), labels (B,).  Returns
     (image->text, text->image) cross-entropies."""
-    sim = damsm_sim(words_emb.float(), img_features.float(), cap_lens, gamma1, gamma2)
+    sim = damsm_sim(words_emb.float(), img_features.float(), cap_lens, gamma1, gamma2,
+                    mm_dtype)
     similarities = _mask_classes(sim.T * gamma3, class_ids)  # [image, text]
     return (masked_cross_entropy(similarities, labels),
             masked_cross_entropy(similarities.T, labels))

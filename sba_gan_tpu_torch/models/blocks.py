@@ -10,6 +10,10 @@ The JAX package's ``UPBLOCK_FUSED``, ``BN_COMPACT``, ``RGB_HEAD_PAD`` and
 ``CONV_WGRAD_DOT`` levers are XLA lowerings of the same values; the port
 computes the plain math and needs none of them.  BatchNorm is
 :class:`models.norms.BatchNorm` (flax's train-mode statistics, eps 1e-5).
+Convolutions and linears are :mod:`models.layers`' (a compute dtype set by
+the model's builder); between them the blocks compute in their input's
+dtype, and in float32 where the JAX package's blocks cast: the instance
+norm of AdaIN and the CA sample.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sba_gan_tpu_torch.models.norms import BatchNorm
+from sba_gan_tpu_torch.models.layers import Conv2d, Linear
+from sba_gan_tpu_torch.models.norms import BatchNorm, promote
 
 BN_EPS = 1e-5
 LEAK = 0.2
@@ -36,9 +41,9 @@ class GLU(nn.Module):
         return glu(x, 1)
 
 
-def conv3x3(cin: int, cout: int) -> nn.Conv2d:
+def conv3x3(cin: int, cout: int) -> Conv2d:
     """3x3 stride-1 conv, padding 1, no bias."""
-    return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
+    return Conv2d(cin, cout, 3, padding=1, bias=False)
 
 
 def batch_norm(c: int) -> BatchNorm:
@@ -74,17 +79,19 @@ class ResBlock(nn.Module):
 
 class CANet(nn.Module):
     """Conditioning augmentation: linear -> GLU -> (mu, logvar) ->
-    c = mu + eps * exp(logvar / 2).  ``eps`` (B, c_dim) is passed in."""
+    c = mu + eps * exp(logvar / 2), the sample in float32 and returned in
+    mu's dtype.  ``eps`` (B, c_dim) is passed in."""
 
     def __init__(self, t_dim: int, c_dim: int):
         super().__init__()
         self.c_dim = c_dim
-        self.fc = nn.Linear(t_dim, c_dim * 4)
+        self.fc = Linear(t_dim, c_dim * 4)
 
     def forward(self, sent_emb, eps):
         x = glu(self.fc(sent_emb), 1)
         mu, logvar = x[:, : self.c_dim], x[:, self.c_dim:]
-        return mu + eps * torch.exp(0.5 * logvar), mu, logvar
+        c_code = promote(mu) + eps * torch.exp(0.5 * promote(logvar))
+        return c_code.to(mu.dtype), mu, logvar
 
 
 class MappingNet(nn.Module):
@@ -94,7 +101,7 @@ class MappingNet(nn.Module):
         super().__init__()
         dims = [z_dim] + [w_dim] * num_layers
         self.fc = nn.Sequential(*[
-            nn.Linear(dims[i], dims[i + 1], bias=False) for i in range(num_layers)
+            Linear(dims[i], dims[i + 1], bias=False) for i in range(num_layers)
         ])
 
     def forward(self, z):
@@ -102,10 +109,12 @@ class MappingNet(nn.Module):
 
 
 def instance_norm_2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Per-sample, per-channel normalization over H, W (biased variance)."""
-    mean = x.mean(dim=(2, 3), keepdim=True)
-    var = x.var(dim=(2, 3), keepdim=True, unbiased=False)
-    return (x - mean) * torch.rsqrt(var + eps)
+    """Per-sample, per-channel normalization over H, W (biased variance), in
+    at least float32, returned in ``x``'s dtype."""
+    x32 = promote(x)
+    mean = x32.mean(dim=(2, 3), keepdim=True)
+    var = x32.var(dim=(2, 3), keepdim=True, unbiased=False)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 class AdaINNorm(nn.Module):
@@ -113,7 +122,7 @@ class AdaINNorm(nn.Module):
 
     def __init__(self, w_dim: int, features: int):
         super().__init__()
-        self.style = nn.Linear(w_dim, features * 2)
+        self.style = Linear(w_dim, features * 2)
 
     def forward(self, h, w_code):
         gamma, beta = self.style(w_code)[:, :, None, None].chunk(2, dim=1)
@@ -130,7 +139,7 @@ def block3x3_leak_relu(cin: int, cout: int) -> nn.Sequential:
 
 def down_block(cin: int, cout: int) -> nn.Sequential:
     """4x4 stride-2 conv (padding 1, no bias) -> BN -> LeakyReLU(0.2): H/2."""
-    return nn.Sequential(nn.Conv2d(cin, cout, 4, stride=2, padding=1, bias=False),
+    return nn.Sequential(Conv2d(cin, cout, 4, stride=2, padding=1, bias=False),
                          batch_norm(cout), nn.LeakyReLU(LEAK))
 
 
@@ -138,7 +147,7 @@ def encode_by_16(ndf: int) -> nn.Sequential:
     """3 -> ndf -> 2ndf -> 4ndf -> 8ndf by four stride-2 4x4 convs, H/16; the
     first conv has no BN.  Flat, as the reference's
     ``encode_image_by_16times`` (convs at 0, 2, 5, 8; BNs at 3, 6, 9)."""
-    layers = [nn.Conv2d(3, ndf, 4, stride=2, padding=1, bias=False), nn.LeakyReLU(LEAK)]
+    layers = [Conv2d(3, ndf, 4, stride=2, padding=1, bias=False), nn.LeakyReLU(LEAK)]
     for mult in (1, 2, 4):
         layers.extend(down_block(ndf * mult, ndf * mult * 2))
     return nn.Sequential(*layers)

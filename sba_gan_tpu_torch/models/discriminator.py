@@ -10,6 +10,10 @@ Submodule names are the reference D_NET state-dict keys (``img_code_s16``,
 ``img_code_s64_2``, ``COND_DNET.jointConv``, ``COND_DNET.outlogits``,
 ``UNCOND_DNET.outlogits``), so :func:`utils.weights.d_net_state_dict` maps
 every Flax path to one key.
+
+Each takes ``dtype``, the compute dtype of its convolutions (float32 or
+bfloat16, the JAX package's ``dtype=``; the parameters stay float32); the
+logits come out float32 either way.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from sba_gan_tpu_torch.config import compute_dtype
 from sba_gan_tpu_torch.models.blocks import block3x3_leak_relu, down_block, encode_by_16
+from sba_gan_tpu_torch.models.layers import Conv2d, set_compute_dtype
 
 
 class DGetLogits(nn.Module):
@@ -32,7 +38,7 @@ class DGetLogits(nn.Module):
         self.bcondition = bcondition
         if bcondition:
             self.jointConv = block3x3_leak_relu(ndf * 8 + nef, ndf * 8)
-        self.outlogits = nn.Sequential(nn.Conv2d(ndf * 8, 1, 4, stride=4))
+        self.outlogits = nn.Sequential(Conv2d(ndf * 8, 1, 4, stride=4))
 
     def forward(self, h_code: torch.Tensor, c_code: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
@@ -49,11 +55,20 @@ class _DNet(nn.Module):
 
     stages: List[str] = []
 
-    def __init__(self, ndf: int, nef: int, b_jcu: bool = True):
+    def __init__(self, ndf: int, nef: int, b_jcu: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.img_code_s16 = encode_by_16(ndf)
         self.COND_DNET = DGetLogits(ndf, nef, bcondition=True)
         self.UNCOND_DNET = DGetLogits(ndf, nef, bcondition=False) if b_jcu else None
+        for name, (cin, cout, block) in self._blocks(ndf).items():
+            setattr(self, name, block(cin, cout))
+        set_compute_dtype(self, dtype)
+
+    @staticmethod
+    def _blocks(ndf: int) -> dict:
+        """{name: (cin, cout, block)} of the blocks past the backbone."""
+        return {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.img_code_s16(x)
@@ -79,10 +94,10 @@ class DNet128(_DNet):
 
     stages = ["img_code_s32", "img_code_s32_1"]
 
-    def __init__(self, ndf: int, nef: int, b_jcu: bool = True):
-        super().__init__(ndf, nef, b_jcu)
-        self.img_code_s32 = down_block(ndf * 8, ndf * 16)
-        self.img_code_s32_1 = block3x3_leak_relu(ndf * 16, ndf * 8)
+    @staticmethod
+    def _blocks(ndf: int) -> dict:
+        return {"img_code_s32": (ndf * 8, ndf * 16, down_block),
+                "img_code_s32_1": (ndf * 16, ndf * 8, block3x3_leak_relu)}
 
 
 class DNet256(_DNet):
@@ -90,20 +105,21 @@ class DNet256(_DNet):
 
     stages = ["img_code_s32", "img_code_s64", "img_code_s64_1", "img_code_s64_2"]
 
-    def __init__(self, ndf: int, nef: int, b_jcu: bool = True):
-        super().__init__(ndf, nef, b_jcu)
-        self.img_code_s32 = down_block(ndf * 8, ndf * 16)
-        self.img_code_s64 = down_block(ndf * 16, ndf * 32)
-        self.img_code_s64_1 = block3x3_leak_relu(ndf * 32, ndf * 16)
-        self.img_code_s64_2 = block3x3_leak_relu(ndf * 16, ndf * 8)
+    @staticmethod
+    def _blocks(ndf: int) -> dict:
+        return {"img_code_s32": (ndf * 8, ndf * 16, down_block),
+                "img_code_s64": (ndf * 16, ndf * 32, down_block),
+                "img_code_s64_1": (ndf * 32, ndf * 16, block3x3_leak_relu),
+                "img_code_s64_2": (ndf * 16, ndf * 8, block3x3_leak_relu)}
 
 
 def build_discriminators(cfg) -> List[_DNet]:
-    """One discriminator per branch (GDCGAN's single one is not ported yet)."""
+    """One discriminator per branch, computing in ``JAX.DTYPE`` (GDCGAN's
+    single one is not ported yet)."""
     if cfg.GAN.B_DCGAN:
         raise NotImplementedError(
             "GAN.B_DCGAN (G_DCGAN and its one discriminator) is not ported yet "
             "(ROADMAP.md, queue 1, item 9)")
     ndf, nef = cfg.GAN.DF_DIM, cfg.TEXT.EMBEDDING_DIM
     klass = (DNet64, DNet128, DNet256)
-    return [klass[i](ndf, nef) for i in range(cfg.TREE.BRANCH_NUM)]
+    return [klass[i](ndf, nef, dtype=compute_dtype(cfg)) for i in range(cfg.TREE.BRANCH_NUM)]

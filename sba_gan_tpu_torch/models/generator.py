@@ -12,6 +12,12 @@ Submodule names follow the reference G_NET state-dict keys (``ca_net``,
 ``mapping_net.fc.N``, ``h_net1.fc``, ``h_net1.upsampleK``, ``img_netI.img``,
 ``h_netJ.{att, adain, residual, upsample}``).  ``GNet.forward`` takes and
 returns the JAX package's layouts: images (B, S, S, 3), maps (B, H, W, T).
+
+``GNet(dtype=...)`` is the JAX package's ``GNet(dtype=...)``: the
+parameters stay float32, the convolutions and linears compute in ``dtype``
+(float32 or bfloat16), and the images come out float32 (each head's tanh
+runs on its conv's output cast to float32); the maps and ``mu``/``logvar``
+come out in ``dtype``.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from sba_gan_tpu_torch.config import compute_dtype
 from sba_gan_tpu_torch.models.attention import WordAttention
 from sba_gan_tpu_torch.models.blocks import (
     AdaINNorm,
@@ -32,6 +39,8 @@ from sba_gan_tpu_torch.models.blocks import (
     conv3x3,
     up_block,
 )
+from sba_gan_tpu_torch.models.layers import Linear, set_compute_dtype
+from sba_gan_tpu_torch.models.norms import promote
 
 
 class InitStageG(nn.Module):
@@ -41,7 +50,7 @@ class InitStageG(nn.Module):
         super().__init__()
         self.ngf = ngf
         self.fc = nn.Sequential(
-            nn.Linear(in_dim, ngf * 4 * 4 * 2, bias=False),
+            Linear(in_dim, ngf * 4 * 4 * 2, bias=False),
             batch_norm(ngf * 4 * 4 * 2),
             GLU(),
         )
@@ -78,12 +87,15 @@ class NextStageG(nn.Module):
 
 
 class GetImageG(nn.Module):
+    """conv3x3 -> tanh, the tanh in at least float32."""
+
     def __init__(self, ngf: int):
         super().__init__()
         self.img = nn.Sequential(conv3x3(ngf, 3), nn.Tanh())
 
     def forward(self, h):
-        return self.img(h)
+        conv, tanh = self.img
+        return tanh(promote(conv(h)))
 
 
 class GNet(nn.Module):
@@ -96,6 +108,7 @@ class GNet(nn.Module):
       sent_emb:  (B, nef); word_embs (B, T, nef); pad_mask (B, T) bool.
       eps:       (B, condition_dim) CA-net noise.
     Returns (images [(B, S, S, 3)], maps [(B, H, W, T)], mu, logvar).
+    ``dtype`` is the compute dtype (see the module's docstring).
     :meth:`forward_nchw` returns the images as (B, 3, S, S), as the
     discriminators take them.
     """
@@ -103,7 +116,7 @@ class GNet(nn.Module):
     def __init__(self, gf_dim: int, nef: int, z_dim: int, condition_dim: int,
                  w_dim: int, branch_num: int = 3, num_residual: int = 2,
                  mapping_layers: int = 6, z_concat: bool = True,
-                 style_mixing: bool = False):
+                 style_mixing: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if not 1 <= branch_num <= 3:
             raise ValueError(f"branch_num must be 1..3, got {branch_num}")
@@ -122,6 +135,7 @@ class GNet(nn.Module):
         if branch_num > 2:
             self.h_net3 = NextStageG(ngf, nef, w_dim, num_residual)
             self.img_net3 = GetImageG(ngf)
+        set_compute_dtype(self, dtype)
 
     def forward(self, z, sent_emb, word_embs, pad_mask: Optional[torch.Tensor],
                 eps) -> Tuple[List[torch.Tensor], List[torch.Tensor],
@@ -152,7 +166,8 @@ class GNet(nn.Module):
 
 
 def build_generator(cfg) -> GNet:
-    """The generator ``cfg`` describes (GDCGAN is not ported yet)."""
+    """The generator ``cfg`` describes, computing in ``JAX.DTYPE`` (GDCGAN
+    is not ported yet)."""
     if cfg.GAN.B_DCGAN:
         raise NotImplementedError("GAN.B_DCGAN (G_DCGAN) is not ported yet")
     return GNet(
@@ -166,4 +181,5 @@ def build_generator(cfg) -> GNet:
         mapping_layers=cfg.GAN.M_NUM,
         z_concat=cfg.GAN.INIT_Z_CONCAT,
         style_mixing=cfg.TRAIN.MIXING,
+        dtype=compute_dtype(cfg),
     )

@@ -14,6 +14,12 @@ that the JAX package's ``port_cnn_encoder`` reads.  BatchNorm is flax's
 (:class:`models.norms.BatchNorm`) with eps 1e-3: in train mode the running
 statistics move as ``new = 0.9 old + 0.1 batch`` with the *biased* batch
 variance, not torch's unbiased one.
+
+``CNNEncoder(dtype=...)`` is the JAX package's ``CNNEncoder(dtype=...)``:
+the parameters stay float32, the resize runs in float32, the convolutions
+and the code's linear compute in ``dtype`` (float32 or bfloat16), the
+3 x 3 average pools sum in float32, and the regions and the code come out
+in at least float32.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sba_gan_tpu_torch.models.norms import BatchNorm
+from sba_gan_tpu_torch.models.layers import Conv2d, Linear, set_compute_dtype
+from sba_gan_tpu_torch.models.norms import BatchNorm, promote
 
 
 def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -60,8 +67,8 @@ class BasicConv2d(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel, stride: int = 1, padding=0):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding,
-                              bias=False)
+        self.conv = Conv2d(cin, cout, kernel, stride=stride, padding=padding,
+                           bias=False)
         self.bn = BatchNorm(cout, eps=1e-3)
 
     def forward(self, x):
@@ -69,8 +76,10 @@ class BasicConv2d(nn.Module):
 
 
 def avg_pool_3x3(x):
-    """3 x 3, stride 1, pad 1, padding counted (divisor 9)."""
-    return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=True)
+    """3 x 3, stride 1, pad 1, padding counted (divisor 9); in at least
+    float32, returned in ``x``'s dtype."""
+    return F.avg_pool2d(promote(x), 3, stride=1, padding=1,
+                        count_include_pad=True).to(x.dtype)
 
 
 def max_pool_3x3_s2(x):
@@ -187,7 +196,8 @@ class CNNEncoder(nn.Module):
     """forward(images (B, S, S, 3)) -> (regions (B, R, nef), code (B, nef)),
     R = 289 at input 299."""
 
-    def __init__(self, nef: int = 256, input_size: int = 299):
+    def __init__(self, nef: int = 256, input_size: int = 299,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.input_size = input_size
         self.Conv2d_1a_3x3 = BasicConv2d(3, 32, 3, stride=2)
@@ -206,8 +216,9 @@ class CNNEncoder(nn.Module):
         self.Mixed_7a = InceptionD(768)
         self.Mixed_7b = InceptionE(1280)
         self.Mixed_7c = InceptionE(2048)
-        self.emb_features = nn.Conv2d(768, nef, 1, bias=False)
-        self.emb_cnn_code = nn.Linear(2048, nef)
+        self.emb_features = Conv2d(768, nef, 1, bias=False)
+        self.emb_cnn_code = Linear(2048, nef)
+        set_compute_dtype(self, dtype)
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         size = self.input_size
@@ -226,7 +237,7 @@ class CNNEncoder(nn.Module):
         pooled = x.mean(dim=(2, 3))
         region = self.emb_features(features)  # (B, nef, 17, 17)
         region = region.permute(0, 2, 3, 1).reshape(region.shape[0], -1, region.shape[1])
-        return region, self.emb_cnn_code(pooled)
+        return promote(region), promote(self.emb_cnn_code(pooled))
 
 
 @torch.no_grad()

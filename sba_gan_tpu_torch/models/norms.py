@@ -14,6 +14,14 @@ and reduces over every dim but 1.
 :func:`frozen_running_stats` normalizes by batch statistics without moving
 the running buffers, for the passes of the G loss through the
 discriminators, whose running-statistic updates the JAX step drops.
+
+On a bfloat16 input (the models' compute dtype under ``JAX.DTYPE:
+bfloat16``) it computes as flax's ``nn.BatchNorm(dtype=bfloat16)``: the
+statistics, the normalization, the scale and the offset in float32 from
+the widened input, the result cast back to bfloat16; the running
+statistics stay float32.  (The JAX package's compact BatchNorm,
+``BN_COMPACT``, applies scale and offset in the compute dtype instead; the
+port does not take that memory lever.)
 """
 
 from __future__ import annotations
@@ -24,6 +32,12 @@ from typing import Iterator
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def promote(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in at least float32: bfloat16 widened (exactly), float32 and
+    float64 as they are."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
@@ -40,6 +54,9 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._check_input_dim(x)
+        return self._normalize(promote(x)).to(x.dtype)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)

@@ -29,12 +29,25 @@
 // 10 mantissa bits by a mask; small_big + big_small + big_big, float32
 // accumulation).  The elementwise steps (the softmaxes, the cosine, the
 // log-sum-exp and their backward) run in float32 on the CUDA cores.
+//
+// Every product takes a compile-time precision, kBf16 (mm_dtype of the JAX
+// package's _pair_forward and _pair_backward).  false: float32 products,
+// 3xTF32 as above.  true: bfloat16 products.  Each operand is rounded to
+// bfloat16 as it is read into its fragment (__float2bfloat16_rn, round to
+// nearest even, as XLA's convert): W, X, A2, dC and dS alike, so the
+// intermediates A2, dC and dS are rounded only as operands and stay float32
+// in shared memory for the elementwise steps.  A bfloat16 value is exact in
+// TF32 and the product of two is exact in float32, so one mma.sync m16n8k8
+// TF32 per product computes what the three of 3xTF32 compute in float32,
+// with the same fragment layouts.  X still streams as float32: the inputs
+// are float32 in memory, as in the JAX package.
 
 #pragma once
 
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -192,17 +205,23 @@ __device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- tensor-core products ------------------------------------------------
 
-// A fragment as big + small TF32 parts: big keeps the top 10 mantissa
-// bits (a mask, exact), small = v - big (exact) and the tensor core reads
-// its top bits.  |v - big - small_tf32| <= 2^-20 |v|.
-template <int kN>
+// A fragment's operands.  Float32 products: big + small TF32 parts, big
+// the top 10 mantissa bits (a mask, exact), small = v - big (exact), of
+// which the tensor core reads the top bits; |v - big - small_tf32| <=
+// 2^-20 |v|.  Bfloat16 products (kBf16): big is v rounded to bfloat16,
+// exact in TF32, and small is not used.
+template <int kN, bool kBf16>
 struct Split {
   uint32_t hi[kN], lo[kN];
   __device__ inline void set(const float (&v)[kN]) {
 #pragma unroll
     for (int e = 0; e < kN; ++e) {
-      hi[e] = __float_as_uint(v[e]) & 0xffffe000u;
-      lo[e] = __float_as_uint(v[e] - __uint_as_float(hi[e]));
+      if constexpr (kBf16) {
+        hi[e] = __float_as_uint(__bfloat162float(__float2bfloat16_rn(v[e])));
+      } else {
+        hi[e] = __float_as_uint(v[e]) & 0xffffe000u;
+        lo[e] = __float_as_uint(v[e] - __uint_as_float(hi[e]));
+      }
     }
   }
 };
@@ -352,11 +371,11 @@ __device__ __forceinline__ void stream_pass(Block<kTexts>& bk, const float* xg,
 // kU k-steps of an S-type tile from column k (k-step stride 8): all loads
 // first, then the MMAs term by term into two sets of three accumulators (one
 // a term), so that no MMA waits on the one before it.
-template <int kU>
+template <int kU, bool kBf16>
 __device__ __forceinline__ void scores_steps(float (&acc)[2][3][4], const float* a0,
                                              const float* a1, const float* xr, int k, int sw) {
-  Split<4> af[kU];
-  Split<2> bf[kU];
+  Split<4, kBf16> af[kU];
+  Split<2, kBf16> bf[kU];
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
     const int ku = k + 8 * u;
@@ -365,10 +384,12 @@ __device__ __forceinline__ void scores_steps(float (&acc)[2][3][4], const float*
     af[u].set(av);
     bf[u].set(bv);
   }
+  if constexpr (!kBf16) {
 #pragma unroll
-  for (int u = 0; u < kU; ++u) mma_tf32(acc[u & 1][0], af[u].lo, bf[u].hi);
+    for (int u = 0; u < kU; ++u) mma_tf32(acc[u & 1][0], af[u].lo, bf[u].hi);
 #pragma unroll
-  for (int u = 0; u < kU; ++u) mma_tf32(acc[u & 1][1], af[u].hi, bf[u].lo);
+    for (int u = 0; u < kU; ++u) mma_tf32(acc[u & 1][1], af[u].hi, bf[u].lo);
+  }
 #pragma unroll
   for (int u = 0; u < kU; ++u) mma_tf32(acc[u & 1][2], af[u].hi, bf[u].hi);
 }
@@ -385,7 +406,7 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // others' sums in slice order (deterministic).  Rows past L read a row of
 // the array (clamped to T - 1) and are dropped: an MMA's output rows are
 // independent.
-template <int kTexts, bool kMul>
+template <int kTexts, bool kMul, bool kBf16>
 __device__ __forceinline__ void scores_chunk(const Block<kTexts>& bk, const float* xst, int r0,
                                              int nr) {
   constexpr int kNT = Block<kTexts>::kChunk / 8;
@@ -412,8 +433,8 @@ __device__ __forceinline__ void scores_chunk(const Block<kTexts>& bk, const floa
   const int sw = ((n >> 2) & 1) << 2;
   float acc[2][3][4] = {};
   int k = k_begin;
-  for (; k + 4 <= k_end; k += 4) scores_steps<4>(acc, a0, a1, xr, 8 * k + tq, sw);
-  for (; k < k_end; ++k) scores_steps<1>(acc, a0, a1, xr, 8 * k + tq, sw);
+  for (; k + 4 <= k_end; k += 4) scores_steps<4, kBf16>(acc, a0, a1, xr, 8 * k + tq, sw);
+  for (; k < k_end; ++k) scores_steps<1, kBf16>(acc, a0, a1, xr, 8 * k + tq, sw);
   float v[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e)
@@ -453,14 +474,14 @@ using Frags = float[kTexts][2][kJ][4];
 // C-type product on one chunk: acc[t][ch] += sum_r q[t][r0 + r] X[r][ch].
 // q is zero in its padding columns and X in its zero-filled rows; rows of
 // acc past L hold values of no word and are dropped by their readers.
-template <int kTexts>
+template <int kTexts, bool kBf16>
 __device__ __forceinline__ void context_chunk(const Block<kTexts>& bk, Frags<kTexts>& acc,
                                               const float* xst, int r0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < Block<kTexts>::kChunk; kk += 8) {
-    Split<2> bf[kJ];
+    Split<2, kBf16> bf[kJ];
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
       const int ch = (warp + kWarps * j) * 8 + g;
@@ -482,15 +503,17 @@ __device__ __forceinline__ void context_chunk(const Block<kTexts>& bk, Frags<kTe
         const float* q0 = qm + min(h * 16 + g, bk.t_len - 1) * bk.rp;
         const float* q1 = qm + min(h * 16 + g + 8, bk.t_len - 1) * bk.rp;
         const float av[4] = {q0[0], q1[0], q0[4], q1[4]};
-        Split<4> af;
+        Split<4, kBf16> af;
         af.set(av);
         // term by term over the channel tiles: an accumulator's MMAs are kJ apart
+        if constexpr (!kBf16) {
 #pragma unroll
-        for (int j = 0; j < kJ; ++j)
-          if ((warp + kWarps * j) * 8 < bk.d8) mma_tf32(acc[a][h][j], af.lo, bf[j].hi);
+          for (int j = 0; j < kJ; ++j)
+            if ((warp + kWarps * j) * 8 < bk.d8) mma_tf32(acc[a][h][j], af.lo, bf[j].hi);
 #pragma unroll
-        for (int j = 0; j < kJ; ++j)
-          if ((warp + kWarps * j) * 8 < bk.d8) mma_tf32(acc[a][h][j], af.hi, bf[j].lo);
+          for (int j = 0; j < kJ; ++j)
+            if ((warp + kWarps * j) * 8 < bk.d8) mma_tf32(acc[a][h][j], af.hi, bf[j].lo);
+        }
 #pragma unroll
         for (int j = 0; j < kJ; ++j)
           if ((warp + kWarps * j) * 8 < bk.d8) mma_tf32(acc[a][h][j], af.hi, bf[j].hi);
@@ -527,7 +550,7 @@ __device__ inline void zero_frags(Frags<kTexts>& acc) {
 // A1 in p, A2 in q, C in c, and per word M2/S2 (Eq. 9's row max and sum)
 // and Num/Wn/Cn/Rs.  The C pass hands the stream on to c_next (the next
 // pass's image, or none).  Ends with a barrier.
-template <int kTexts>
+template <int kTexts, bool kBf16>
 __device__ __forceinline__ void pair_forward(Block<kTexts>& bk, const float* __restrict__ xg,
                                              const float* c_next, float g1, float g2) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -535,7 +558,7 @@ __device__ __forceinline__ void pair_forward(Block<kTexts>& bk, const float* __r
 
   // S = W X^T into p
   stream_pass(bk, xg, xg, [&](const float* xst, int r0, int nr) {
-    scores_chunk<kTexts, false>(bk, xst, r0, nr);
+    scores_chunk<kTexts, false, kBf16>(bk, xst, r0, nr);
   });
 
   // Eq. 8: softmax over the real words, one thread per (text, region)
@@ -588,7 +611,7 @@ __device__ __forceinline__ void pair_forward(Block<kTexts>& bk, const float* __r
     Frags<kTexts> cacc;
     zero_frags<kTexts>(cacc);
     stream_pass(bk, xg, c_next, [&](const float* xst, int r0, int) {
-      context_chunk<kTexts>(bk, cacc, xst, r0);
+      context_chunk<kTexts, kBf16>(bk, cacc, xst, r0);
     });
     for_each_frag<kTexts>(cacc, [&](int a, int t, int ch, float& v) {
       if (t < bk.len(a) && ch < bk.d8) bk.text(a).c[t * bk.dp + ch] = v;
@@ -657,7 +680,7 @@ __device__ __forceinline__ void lse_backward(const Block<kTexts>& bk, const floa
 // inner2), inner1 = sum_t dA1 A1, dS = A1 (dA1 - inner1).  kA2: p takes
 // A2 back from A1 (recomputed as Eq. 9 computed it).  The caller's next
 // step must start with a barrier.
-template <int kTexts, bool kA2>
+template <int kTexts, bool kA2, bool kBf16>
 __device__ __forceinline__ void pair_ds(Block<kTexts>& bk, const float* __restrict__ xg,
                                         const float* u_next, float g1) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -665,7 +688,7 @@ __device__ __forceinline__ void pair_ds(Block<kTexts>& bk, const float* __restri
 
   // u = A2 * dA2 with dA2 = dC X^T, in q
   stream_pass(bk, xg, u_next, [&](const float* xst, int r0, int nr) {
-    scores_chunk<kTexts, true>(bk, xst, r0, nr);
+    scores_chunk<kTexts, true, kBf16>(bk, xst, r0, nr);
   });
 
   // inner2 = sum over regions of u, one warp per (text, word)

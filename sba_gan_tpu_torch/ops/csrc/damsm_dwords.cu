@@ -54,6 +54,11 @@
 // forward and the backward down to dS) is damsm_common.cuh, which K1 and
 // K2 (damsm_sim.cu) run too; this file holds what only K3 does: the word
 // gradient in fragments and its last pass, dS X.
+//
+// Two instantiations, kBf16 false and true: mm_dtype float32 and bfloat16
+// (JAX.LOSS_DTYPE).  The bfloat16 one rounds every operand of the four
+// products (S, C, dA2, dS X) to bfloat16 and runs one TF32 MMA a product in
+// place of three (damsm_common.cuh); the rest is the same float32 code.
 
 #include <cstddef>
 #include <cuda_runtime.h>
@@ -64,12 +69,12 @@ namespace {
 
 // ---- the pair: forward, then the word side of the backward ---------------
 
-template <int kTexts>
+template <int kTexts, bool kBf16>
 __device__ __forceinline__ void pair_dwords(Block<kTexts>& bk, Frags<kTexts>& dw,
                                             const float* __restrict__ xg, const float* next_xg,
                                             const float* gij, int bj, float g1, float g2) {
   const int d = bk.d;
-  pair_forward<kTexts>(bk, xg, xg, g1, g2);
+  pair_forward<kTexts, kBf16>(bk, xg, xg, g1, g2);
   lse_backward<kTexts>(bk, gij, bj, g2);
 
   // dW += d_num C + fw W on this thread's fragments; dC = d_num W + fc C
@@ -83,17 +88,17 @@ __device__ __forceinline__ void pair_dwords(Block<kTexts>& bk, Frags<kTexts>& dw
   });
   // (the next pass starts with a barrier)
 
-  pair_ds<kTexts, false>(bk, xg, xg, g1);
+  pair_ds<kTexts, false, kBf16>(bk, xg, xg, g1);
 
   // dW += dS X
   stream_pass(bk, xg, next_xg, [&](const float* xst, int r0, int) {
-    context_chunk<kTexts>(bk, dw, xst, r0);
+    context_chunk<kTexts, kBf16>(bk, dw, xst, r0);
   });
 }
 
 // K3: one block per (group of kTexts texts, range of images);
 // part[split][i] (T x D), rows t >= L_i zero.
-template <int kTexts>
+template <int kTexts, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1) damsm_dwords_kernel(
     const float* __restrict__ words, const float* __restrict__ img,
     const int* __restrict__ lens, const float* __restrict__ grad,
@@ -112,8 +117,8 @@ __global__ void __launch_bounds__(kThreads, 1) damsm_dwords_kernel(
   for (int j = j0; j < j1; ++j) {
     const float* xg = img + j * img_floats;
     const float* next_xg = j + 1 < j1 ? xg + img_floats : nullptr;
-    pair_dwords<kTexts>(bk, dw, xg, next_xg, grad + static_cast<size_t>(i0) * bj + j, bj,
-                        g1, g2);
+    pair_dwords<kTexts, kBf16>(bk, dw, xg, next_xg, grad + static_cast<size_t>(i0) * bj + j,
+                               bj, g1, g2);
   }
 
   for_each_frag<kTexts>(dw, [&](int a, int t, int ch, float& v) {
@@ -123,17 +128,19 @@ __global__ void __launch_bounds__(kThreads, 1) damsm_dwords_kernel(
   });
 }
 
-size_t granted1[kMaxDevices], granted2[kMaxDevices];
+// [bf16][texts - 1]: each instantiation's shared-memory cap per device
+size_t granted[2][kMaxTexts][kMaxDevices];
 
-template <int kTexts>
+template <int kTexts, bool kBf16>
 cudaError_t launch(const float* words, const float* img, const int* lens, const float* grad,
                    float* part, int b, int bj, int t_len, int r, int d, int chunk, float g1,
-                   float g2, int splits, cudaStream_t stream, size_t (&granted)[kMaxDevices]) {
+                   float g2, int splits, cudaStream_t stream) {
   const size_t bytes = smem_bytes(kTexts, t_len, r, d);
-  const cudaError_t err = allow_smem(damsm_dwords_kernel<kTexts>, bytes, granted);
+  const cudaError_t err = allow_smem(damsm_dwords_kernel<kTexts, kBf16>, bytes,
+                                     granted[kBf16][kTexts - 1]);
   if (err != cudaSuccess) return err;
   const dim3 grid((b + kTexts - 1) / kTexts, splits);
-  damsm_dwords_kernel<kTexts><<<grid, kThreads, bytes, stream>>>(
+  damsm_dwords_kernel<kTexts, kBf16><<<grid, kThreads, bytes, stream>>>(
       words, img, lens, grad, part, b, bj, t_len, r, d, chunk, g1, g2);
   return cudaGetLastError();
 }
@@ -149,24 +156,24 @@ extern "C" int damsm_dwords_texts(int b, int t_len, int r, int d) {
 // Plain C entry point, loaded with ctypes.  Device pointers to contiguous
 // arrays: words (B, T, D) and img (Bj, R, D) float32, lens (B,) int32 with
 // every length in [1, T], grad (B, Bj) float32.  `texts` texts a block
-// (damsm_dwords_texts), `chunk` images a block.  part: scratch of splits *
+// (damsm_dwords_texts), `chunk` images a block, `bf16` nonzero for
+// bfloat16 products (mm_dtype bfloat16).  part: scratch of splits *
 // B * T * D floats, splits = ceil(Bj / chunk); when splits == 1 it may be
 // d_words itself.  d_words (B, T, D).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int damsm_sim_dwords(const float* words, const float* img, const int* lens,
                                 const float* grad, float* part, float* d_words, int b,
                                 int bj, int t_len, int r, int d, int texts, int chunk,
-                                float g1, float g2, cudaStream_t stream) {
+                                float g1, float g2, int bf16, cudaStream_t stream) {
   if (!shape_ok(texts, b, bj, t_len, r, d) || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int splits = (bj + chunk - 1) / chunk;
   if (splits > 65535 || (b + texts - 1) / texts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto run = texts == 2 ? (bf16 ? &launch<2, true> : &launch<2, false>)
+                              : (bf16 ? &launch<1, true> : &launch<1, false>);
   cudaError_t err =
-      texts == 2 ? launch<2>(words, img, lens, grad, part, b, bj, t_len, r, d, chunk, g1, g2,
-                             splits, stream, granted2)
-                 : launch<1>(words, img, lens, grad, part, b, bj, t_len, r, d, chunk, g1, g2,
-                             splits, stream, granted1);
+      run(words, img, lens, grad, part, b, bj, t_len, r, d, chunk, g1, g2, splits, stream);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(
       sum_splits(part, d_words, splits, static_cast<size_t>(b) * t_len * d, stream));

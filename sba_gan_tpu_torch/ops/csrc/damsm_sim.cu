@@ -57,6 +57,12 @@
 // plain TF32 (a third of the MMAs) saves only 11-17%, so the passes are
 // bound by instruction latency and the per-chunk barriers at one block a
 // SM, not by the tensor cores.
+//
+// Each kernel has two instantiations, kBf16 false and true: mm_dtype
+// float32 and bfloat16 (JAX.LOSS_DTYPE).  The bfloat16 one rounds every
+// operand of the five products (S, C, dA2, A2^T dC, dS^T W) to bfloat16
+// and runs one TF32 MMA a product in place of three (damsm_common.cuh);
+// the elementwise steps are the same float32 code.
 
 #include <cstddef>
 #include <cuda_runtime.h>
@@ -71,7 +77,7 @@ namespace {
 // a k-step at column 2 (k % 4) + k / 4 (see the note at the top).
 constexpr int kMB = 2, kNB = 4;
 
-template <int kTexts>
+template <int kTexts, bool kBf16>
 __device__ __forceinline__ void image_product(const Block<kTexts>& bk, float* __restrict__ dx,
                                               bool first) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -111,8 +117,8 @@ __device__ __forceinline__ void image_product(const Block<kTexts>& bk, float* __
           const float* a1 = a0 + bk.rp;
           const float* b0 = bm + k * bk.dp;
           const float* b1 = b0 + bk.dp;
-          Split<4> af[kMB];
-          Split<2> bf[kNB];
+          Split<4, kBf16> af[kMB];
+          Split<2, kBf16> bf[kNB];
 #pragma unroll
           for (int i = 0; i < kMB; ++i) {
             const int m = (mt0 + i) * 16 + g;
@@ -129,16 +135,20 @@ __device__ __forceinline__ void image_product(const Block<kTexts>& bk, float* __
             bf[j].set(bv);
           }
           // term by term over the tiles: an accumulator's MMAs are kMB kNB apart
+          if constexpr (!kBf16) {
 #pragma unroll
-          for (int i = 0; i < kMB; ++i)
+            for (int i = 0; i < kMB; ++i)
 #pragma unroll
-            for (int j = 0; j < kNB; ++j)
-              if (mt0 + i < mtiles && nt0 + j < ntiles) mma_tf32(acc[i][j], af[i].lo, bf[j].hi);
+              for (int j = 0; j < kNB; ++j)
+                if (mt0 + i < mtiles && nt0 + j < ntiles)
+                  mma_tf32(acc[i][j], af[i].lo, bf[j].hi);
 #pragma unroll
-          for (int i = 0; i < kMB; ++i)
+            for (int i = 0; i < kMB; ++i)
 #pragma unroll
-            for (int j = 0; j < kNB; ++j)
-              if (mt0 + i < mtiles && nt0 + j < ntiles) mma_tf32(acc[i][j], af[i].hi, bf[j].lo);
+              for (int j = 0; j < kNB; ++j)
+                if (mt0 + i < mtiles && nt0 + j < ntiles)
+                  mma_tf32(acc[i][j], af[i].hi, bf[j].lo);
+          }
 #pragma unroll
           for (int i = 0; i < kMB; ++i)
 #pragma unroll
@@ -162,7 +172,7 @@ __device__ __forceinline__ void image_product(const Block<kTexts>& bk, float* __
 }
 
 // K1: one block per (group of kTexts texts, range of images); sim (B, Bj).
-template <int kTexts>
+template <int kTexts, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1) damsm_sim_fwd_kernel(
     const float* __restrict__ words, const float* __restrict__ img,
     const int* __restrict__ lens, float* __restrict__ sim, int b, int bj, int t_len, int r,
@@ -178,7 +188,7 @@ __global__ void __launch_bounds__(kThreads, 1) damsm_sim_fwd_kernel(
   start_stream(bk, img + j0 * img_floats);
   for (int j = j0; j < j1; ++j) {
     const float* xg = img + j * img_floats;
-    pair_forward<kTexts>(bk, xg, j + 1 < j1 ? xg + img_floats : nullptr, g1, g2);
+    pair_forward<kTexts, kBf16>(bk, xg, j + 1 < j1 ? xg + img_floats : nullptr, g1, g2);
     // Eq. 10: log-sum-exp over the real words (L <= 32: one warp a text)
     if (warp < kTexts && bk.len(warp) > 0) {
       const int l = bk.len(warp);
@@ -192,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 1) damsm_sim_fwd_kernel(
 }
 
 // K2: one block per (image j, range of text groups); part[split][j] (R x D).
-template <int kTexts>
+template <int kTexts, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1) damsm_sim_dimg_kernel(
     const float* __restrict__ words, const float* __restrict__ img,
     const int* __restrict__ lens, const float* __restrict__ grad, float* __restrict__ part,
@@ -209,7 +219,7 @@ __global__ void __launch_bounds__(kThreads, 1) damsm_sim_dimg_kernel(
   for (int grp = g0; grp < g_end; ++grp) {
     const int i0 = grp * kTexts;
     load_words<kTexts>(bk, words, lens, i0, b);
-    pair_forward<kTexts>(bk, xg, xg, g1, g2);
+    pair_forward<kTexts, kBf16>(bk, xg, xg, g1, g2);
     lse_backward<kTexts>(bk, grad + static_cast<size_t>(i0) * bj + j, bj, g2);
     // dC = d_num W + fc C
 #pragma unroll
@@ -222,38 +232,39 @@ __global__ void __launch_bounds__(kThreads, 1) damsm_sim_dimg_kernel(
       }
     }
     // (the next pass starts with a barrier)
-    pair_ds<kTexts, true>(bk, xg, grp + 1 < g_end ? xg : nullptr, g1);
+    pair_ds<kTexts, true, kBf16>(bk, xg, grp + 1 < g_end ? xg : nullptr, g1);
     __syncthreads();
-    image_product<kTexts>(bk, dx, grp == g0);
+    image_product<kTexts, kBf16>(bk, dx, grp == g0);
     __syncthreads();  // w, c, p and q are free for the next group
   }
 }
 
-size_t fwd_granted1[kMaxDevices], fwd_granted2[kMaxDevices];
-size_t dimg_granted1[kMaxDevices], dimg_granted2[kMaxDevices];
+// [bf16][texts - 1]: each instantiation's shared-memory cap per device
+size_t fwd_granted[2][kMaxTexts][kMaxDevices], dimg_granted[2][kMaxTexts][kMaxDevices];
 
-template <int kTexts>
+template <int kTexts, bool kBf16>
 cudaError_t launch_fwd(const float* words, const float* img, const int* lens, float* sim, int b,
                        int bj, int t_len, int r, int d, int chunk, float g1, float g2,
-                       int splits, cudaStream_t stream, size_t (&granted)[kMaxDevices]) {
+                       int splits, cudaStream_t stream) {
   const size_t bytes = smem_bytes(kTexts, t_len, r, d);
-  const cudaError_t err = allow_smem(damsm_sim_fwd_kernel<kTexts>, bytes, granted);
+  const cudaError_t err = allow_smem(damsm_sim_fwd_kernel<kTexts, kBf16>, bytes,
+                                     fwd_granted[kBf16][kTexts - 1]);
   if (err != cudaSuccess) return err;
   const dim3 grid((b + kTexts - 1) / kTexts, splits);
-  damsm_sim_fwd_kernel<kTexts><<<grid, kThreads, bytes, stream>>>(
+  damsm_sim_fwd_kernel<kTexts, kBf16><<<grid, kThreads, bytes, stream>>>(
       words, img, lens, sim, b, bj, t_len, r, d, chunk, g1, g2);
   return cudaGetLastError();
 }
 
-template <int kTexts>
+template <int kTexts, bool kBf16>
 cudaError_t launch_dimg(const float* words, const float* img, const int* lens,
                         const float* grad, float* part, int b, int bj, int t_len, int r, int d,
-                        int chunk, float g1, float g2, int splits, cudaStream_t stream,
-                        size_t (&granted)[kMaxDevices]) {
+                        int chunk, float g1, float g2, int splits, cudaStream_t stream) {
   const size_t bytes = smem_bytes(kTexts, t_len, r, d);
-  const cudaError_t err = allow_smem(damsm_sim_dimg_kernel<kTexts>, bytes, granted);
+  const cudaError_t err = allow_smem(damsm_sim_dimg_kernel<kTexts, kBf16>, bytes,
+                                     dimg_granted[kBf16][kTexts - 1]);
   if (err != cudaSuccess) return err;
-  damsm_sim_dimg_kernel<kTexts><<<dim3(bj, splits), kThreads, bytes, stream>>>(
+  damsm_sim_dimg_kernel<kTexts, kBf16><<<dim3(bj, splits), kThreads, bytes, stream>>>(
       words, img, lens, grad, part, b, bj, t_len, r, d, chunk, g1, g2);
   return cudaGetLastError();
 }
@@ -263,7 +274,8 @@ cudaError_t launch_dimg(const float* words, const float* img, const int* lens,
 // Plain C entry points, loaded with ctypes.  Device pointers to contiguous
 // arrays: words (B, T, D) and img (Bj, R, D) float32, lens (B,) int32 with
 // every length in [1, T], grad and sim (B, Bj) float32.  `texts` texts a
-// block (damsm_sim_texts).  Each launches on `stream` and returns
+// block (damsm_sim_texts); `bf16` nonzero for bfloat16 products (mm_dtype
+// bfloat16), else float32.  Each launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 
 // Texts a block takes at this shape: the most (up to two, and no more than
@@ -275,16 +287,15 @@ extern "C" int damsm_sim_texts(int b, int t_len, int r, int d) {
 // K1; `chunk` images a block.
 extern "C" int damsm_sim_fwd(const float* words, const float* img, const int* lens,
                              float* sim, int b, int bj, int t_len, int r, int d, int texts,
-                             int chunk, float g1, float g2, cudaStream_t stream) {
+                             int chunk, float g1, float g2, int bf16, cudaStream_t stream) {
   if (!shape_ok(texts, b, bj, t_len, r, d) || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int splits = (bj + chunk - 1) / chunk;
   if (splits > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = texts == 2 ? (bf16 ? &launch_fwd<2, true> : &launch_fwd<2, false>)
+                                 : (bf16 ? &launch_fwd<1, true> : &launch_fwd<1, false>);
   return static_cast<int>(
-      texts == 2 ? launch_fwd<2>(words, img, lens, sim, b, bj, t_len, r, d, chunk, g1, g2,
-                                 splits, stream, fwd_granted2)
-                 : launch_fwd<1>(words, img, lens, sim, b, bj, t_len, r, d, chunk, g1, g2,
-                                 splits, stream, fwd_granted1));
+      launch(words, img, lens, sim, b, bj, t_len, r, d, chunk, g1, g2, splits, stream));
 }
 
 // K2; `chunk` groups of `texts` texts a block.  part: scratch of splits * Bj
@@ -293,17 +304,16 @@ extern "C" int damsm_sim_fwd(const float* words, const float* img, const int* le
 extern "C" int damsm_sim_dimg(const float* words, const float* img, const int* lens,
                               const float* grad, float* part, float* d_img, int b, int bj,
                               int t_len, int r, int d, int texts, int chunk, float g1,
-                              float g2, cudaStream_t stream) {
+                              float g2, int bf16, cudaStream_t stream) {
   if (!shape_ok(texts, b, bj, t_len, r, d) || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (b + texts - 1) / texts;
   const int splits = (groups + chunk - 1) / chunk;
   if (splits > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = texts == 2 ? (bf16 ? &launch_dimg<2, true> : &launch_dimg<2, false>)
+                                 : (bf16 ? &launch_dimg<1, true> : &launch_dimg<1, false>);
   cudaError_t err =
-      texts == 2 ? launch_dimg<2>(words, img, lens, grad, part, b, bj, t_len, r, d, chunk, g1,
-                                  g2, splits, stream, dimg_granted2)
-                 : launch_dimg<1>(words, img, lens, grad, part, b, bj, t_len, r, d, chunk, g1,
-                                  g2, splits, stream, dimg_granted1);
+      launch(words, img, lens, grad, part, b, bj, t_len, r, d, chunk, g1, g2, splits, stream);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(
       sum_splits(part, d_img, splits, static_cast<size_t>(bj) * r * d, stream));

@@ -39,10 +39,20 @@
 //     Any other D <= 256 takes the generic instance, which reads the table
 //     from shared memory (rows padded to D + 1 against bank conflicts).
 // Rows past QL are masked, so any QL works; slots t >= T take no part.
+//
+// Query and table come in float32 or bfloat16 (the generator's compute
+// dtype, JAX.DTYPE), one instantiation each (TIn).  bfloat16 is the Pallas
+// kernel on bfloat16 q and s: the values are widened to float32 as they are
+// read (exact), the score FMAs run in float32 (a product of two bfloat16
+// values is exact in float32), the softmax runs in float32, and each P is
+// rounded to bfloat16 (round to nearest even) for the context product,
+// which P.astype(s.dtype) does there.  ctx and the unrounded P are written
+// as float32 in both.
 
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -66,6 +76,25 @@ size_t smem_bytes(int t_len, int d) {
                              kRows * d + kRows * t_len) * sizeof(float);
 }
 
+__device__ inline float widen(float v) { return v; }
+__device__ inline float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Four consecutive values from 16-byte (float) or 8-byte (bfloat16)
+// aligned memory; a bfloat16 is the top half of its float32.
+__device__ inline float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ inline float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// P as the context product's operand: itself, or rounded to bfloat16.
+template <typename TIn>
+__device__ inline float p_operand(float p) {
+  if constexpr (sizeof(TIn) == 2) return __bfloat162float(__float2bfloat16_rn(p));
+  return p;
+}
+
 // The softmax over the words of kStep rows for lane `lane` (its scores s),
 // as the first design computed it: padding slots are -FLT_MAX and weigh 0.
 // The rows' shuffle chains interleave.
@@ -87,9 +116,11 @@ __device__ inline void rows_softmax(float (&s)[kStep], bool word, float bias) {
   for (int i = 0; i < kStep; ++i) s[i] = e[i] / sum[i];
 }
 
-template <int kD>  // kFastD, or 0 for any d <= kMaxD given at run time
+// kD: kFastD, or 0 for any d <= kMaxD given at run time; TIn: float or
+// __nv_bfloat16, the type of query and source.
+template <int kD, typename TIn>
 __global__ void __launch_bounds__(kThreads) word_attention_fwd_kernel(
-    const float* __restrict__ query, const float* __restrict__ source,
+    const TIn* __restrict__ query, const TIn* __restrict__ source,
     const unsigned char* __restrict__ pad, float* __restrict__ ctx,
     float* __restrict__ probs, int ql, int t_len, int d_arg) {
   const int d = kD > 0 ? kD : d_arg;
@@ -107,10 +138,10 @@ __global__ void __launch_bounds__(kThreads) word_attention_fwd_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t row0 = static_cast<size_t>(b) * ql + r0;
 
-  const float* src = source + static_cast<size_t>(b) * t_len * d;
+  const TIn* src = source + static_cast<size_t>(b) * t_len * d;
   for (int i = threadIdx.x; i < kMaxT * d; i += kThreads) {
     const int t = i / d;
-    tab[i + t] = t < t_len ? src[i] : 0.f;  // (t, k) at t * (d + 1) + k
+    tab[i + t] = t < t_len ? widen(src[i]) : 0.f;  // (t, k) at t * (d + 1) + k
   }
   if (threadIdx.x < kMaxT)
     s_bias[threadIdx.x] = pad != nullptr && threadIdx.x < t_len &&
@@ -118,12 +149,12 @@ __global__ void __launch_bounds__(kThreads) word_attention_fwd_kernel(
                               ? kPadBias
                               : 0.f;
   if (kD > 0) {
-    const float4* q4 = reinterpret_cast<const float4*>(query + row0 * d);
+    const TIn* qg = query + row0 * d;
     float4* t4 = reinterpret_cast<float4*>(tile);
-    for (int i = threadIdx.x; i < n * d / 4; i += kThreads) t4[i] = q4[i];
+    for (int i = threadIdx.x; i < n * d / 4; i += kThreads) t4[i] = load4(qg + 4 * i);
   } else {
-    const float* qg = query + row0 * d;
-    for (int i = threadIdx.x; i < n * d; i += kThreads) tile[i] = qg[i];
+    const TIn* qg = query + row0 * d;
+    for (int i = threadIdx.x; i < n * d; i += kThreads) tile[i] = widen(qg[i]);
   }
   __syncthreads();
 
@@ -160,7 +191,7 @@ __global__ void __launch_bounds__(kThreads) word_attention_fwd_kernel(
 #pragma unroll
       for (int i = 0; i < kStep; ++i) {
         if (word) ptile[rows[i] * t_len + lane] = s[i];
-        p_rows[i * kMaxT + lane] = s[i];
+        p_rows[i * kMaxT + lane] = p_operand<TIn>(s[i]);
       }
       __syncwarp();
       float c[kStep];
@@ -193,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) word_attention_fwd_kernel(
       }
       rows_softmax(s, word, my_bias);
       if (word) ptile[row * t_len + lane] = s[0];
-      p_rows[lane] = s[0];
+      p_rows[lane] = p_operand<TIn>(s[0]);
       __syncwarp();
       float acc[kPer];
 #pragma unroll
@@ -229,21 +260,40 @@ __global__ void __launch_bounds__(kThreads) word_attention_fwd_kernel(
 // and size, so a launch inside CUDA-graph capture makes no attribute call
 // after warm-up.
 constexpr int kMaxDevices = 64;
-size_t generic_granted[kMaxDevices];
+size_t generic_granted[2][kMaxDevices];  // [TIn is bfloat16]
 
+template <typename TIn>
 cudaError_t allow_generic_smem(size_t bytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev < 0 || dev >= kMaxDevices) return err;
-  if (generic_granted[dev] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(word_attention_fwd_kernel<0>,
+  size_t& granted = generic_granted[sizeof(TIn) == 2][dev];
+  if (granted >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(word_attention_fwd_kernel<0, TIn>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
-  if (err == cudaSuccess) generic_granted[dev] = bytes;
+  if (err == cudaSuccess) granted = bytes;
   return err;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename TIn>
+cudaError_t launch(const TIn* query, const TIn* source, const unsigned char* pad, float* ctx,
+                   float* probs, int batch, int ql, int t_len, int d, cudaStream_t stream) {
+  const dim3 grid((ql + kRows - 1) / kRows, batch);
+  const size_t smem = smem_bytes(t_len, d);
+  if (d == kFastD && aligned16(query) && aligned16(ctx)) {
+    word_attention_fwd_kernel<kFastD, TIn><<<grid, kThreads, smem, stream>>>(
+        query, source, pad, ctx, probs, ql, t_len, d);
+  } else {
+    const cudaError_t err = allow_generic_smem<TIn>(smem);
+    if (err != cudaSuccess) return err;
+    word_attention_fwd_kernel<0, TIn><<<grid, kThreads, smem, stream>>>(
+        query, source, pad, ctx, probs, ql, t_len, d);
+  }
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -251,27 +301,21 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 extern "C" int word_attention_tile_rows() { return kRows; }
 
 // Plain C entry point, loaded with ctypes.  All pointers are device pointers
-// to contiguous arrays: query (B, QL, D), source (B, T, D), ctx (B, QL, D)
-// and probs (B, QL, T) float32, pad (B, T) bytes, nonzero at padding, or
-// null for none.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
-extern "C" int word_attention_fwd(const float* query, const float* source,
+// to contiguous arrays: query (B, QL, D) and source (B, T, D), float32, or
+// bfloat16 when `bf16` is nonzero; ctx (B, QL, D) and probs (B, QL, T)
+// float32; pad (B, T) bytes, nonzero at padding, or null for none.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int word_attention_fwd(const void* query, const void* source,
                                   const unsigned char* pad, float* ctx, float* probs,
-                                  int batch, int ql, int t_len, int d,
+                                  int batch, int ql, int t_len, int d, int bf16,
                                   cudaStream_t stream) {
   if (batch < 1 || batch > 65535 || ql < 1 || t_len < 1 || t_len > kMaxT ||
       d < 1 || d > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((ql + kRows - 1) / kRows, batch);
-  const size_t smem = smem_bytes(t_len, d);
-  if (d == kFastD && aligned16(query) && aligned16(ctx)) {
-    word_attention_fwd_kernel<kFastD><<<grid, kThreads, smem, stream>>>(
-        query, source, pad, ctx, probs, ql, t_len, d);
-  } else {
-    const cudaError_t err = allow_generic_smem(smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    word_attention_fwd_kernel<0><<<grid, kThreads, smem, stream>>>(
-        query, source, pad, ctx, probs, ql, t_len, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      bf16 ? launch(static_cast<const __nv_bfloat16*>(query),
+                    static_cast<const __nv_bfloat16*>(source), pad, ctx, probs, batch, ql,
+                    t_len, d, stream)
+           : launch(static_cast<const float*>(query), static_cast<const float*>(source), pad,
+                    ctx, probs, batch, ql, t_len, d, stream));
 }

@@ -24,7 +24,23 @@ Each wrapper sends CUDA tensors to its kernel (counting the launch in its
 :func:`damsm_sim_dwords_plain`: the same math on the dense (B, Bj, T, R)
 grid, float32 or float64).  :func:`damsm_sim` is the differentiable entry:
 its backward runs K2 only when the image needs a gradient and K3 only when
-the words do.  The kernels take any B (no tile has to divide it); a block
+the words do.
+
+``mm_dtype`` (the JAX package's ``mm_dtype``, set by ``JAX.LOSS_DTYPE``) is
+float32 or bfloat16.  The inputs stay float32 in memory either way; under
+bfloat16 each operand of the six matrix products is rounded to bfloat16
+(round to nearest even) and each product accumulates in float32:
+
+* forward (``_pair_forward``): S from (W, X), C from (A2, X);
+* backward (``_pair_backward``): dA2 from (dC, X), dX from (A2, dC),
+  dW += (dS, X) and dX += (dS, W).
+
+Everything else stays float32 and reads unrounded values: the softmaxes,
+the cosine's numerator and norms, the log-sum-exp and its backward.  The
+intermediates A2, dC and dS are computed in float32 and rounded only as
+product operands.  The kernels have one instantiation per ``mm_dtype``;
+each wrapper counts all its launches in ``launches`` and those of the
+bfloat16 instantiation in ``bf16_launches`` too.  The kernels take any B (no tile has to divide it); a block
 holds one or two texts (the C side decides, by shared memory), and the
 grids (:func:`dwords_grid` for K1 and K3, :func:`dimg_grid`) put one
 wave of blocks on the card's SMs.
@@ -55,14 +71,25 @@ def _valid(cap_lens: torch.Tensor, t: int, device) -> torch.Tensor:
     return torch.arange(t, device=device)[None, :] < lens[:, None]
 
 
-def _grid_forward(words, img, valid, gamma1, gamma2):
+def _operand(x: torch.Tensor, mm_dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a product operand of ``mm_dtype``: rounded to bfloat16 and
+    back, or as it is."""
+    if mm_dtype == torch.bfloat16:
+        return x.to(torch.bfloat16).to(x.dtype)
+    if mm_dtype != torch.float32:
+        raise ValueError(f"mm_dtype must be float32 or bfloat16, got {mm_dtype}")
+    return x
+
+
+def _grid_forward(words, img, valid, gamma1, gamma2, mm_dtype=torch.float32):
     """The pair forward of every (text i, image j) at once (JAX
     ``_pair_forward``).  Returns rs (B, Bj, T) and the intermediates."""
-    s = torch.einsum("itd,jrd->ijtr", words, img)
+    img_mm = _operand(img, mm_dtype)
+    s = torch.einsum("itd,jrd->ijtr", _operand(words, mm_dtype), img_mm)
     s = s.masked_fill(~valid[:, None, :, None], NEG_INF)
     a1 = torch.softmax(s, dim=2)
     a2 = torch.softmax(gamma1 * a1, dim=3)
-    c = torch.einsum("ijtr,jrd->ijtd", a2, img)
+    c = torch.einsum("ijtr,jrd->ijtd", _operand(a2, mm_dtype), img_mm)
     num = (words[:, None] * c).sum(-1)
     wn = torch.linalg.vector_norm(words, dim=-1)[:, None].expand_as(num)
     cn = torch.linalg.vector_norm(c, dim=-1)
@@ -72,19 +99,20 @@ def _grid_forward(words, img, valid, gamma1, gamma2):
 
 
 def damsm_sim_plain(words, img, cap_lens, gamma1: float = 4.0,
-                    gamma2: float = 5.0) -> torch.Tensor:
+                    gamma2: float = 5.0, mm_dtype=torch.float32) -> torch.Tensor:
     """sim (B, Bj) of words (B, T, D) against img (Bj, R, D)."""
     valid = _valid(cap_lens, words.shape[1], words.device)
-    rs = _grid_forward(words, img, valid, gamma1, gamma2)[0]
+    rs = _grid_forward(words, img, valid, gamma1, gamma2, mm_dtype)[0]
     return torch.logsumexp(rs, dim=2)
 
 
-def _grid_backward(words, img, cap_lens, g, gamma1, gamma2
+def _grid_backward(words, img, cap_lens, g, gamma1, gamma2, mm_dtype=torch.float32
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(d_words, d_img) for the cotangent g (B, Bj) (JAX ``_pair_backward``,
     summed over images and over texts)."""
     valid = _valid(cap_lens, words.shape[1], words.device)
-    rs, a1, a2, c, num, wn, cn = _grid_forward(words, img, valid, gamma1, gamma2)
+    rs, a1, a2, c, num, wn, cn = _grid_forward(words, img, valid, gamma1, gamma2,
+                                               mm_dtype)
     p = torch.softmax(rs, dim=2) * valid[:, None]  # logsumexp backward
     d_rs = g[:, :, None] * p
     denom_raw = wn * cn
@@ -97,28 +125,30 @@ def _grid_backward(words, img, cap_lens, g, gamma1, gamma2
     w = words[:, None]
     d_c = d_num[..., None] * w + (d_cn / torch.clamp(cn, min=EPS))[..., None] * c
     d_w = d_num[..., None] * c + (d_wn / torch.clamp(wn, min=EPS))[..., None] * w
-    d_a2 = torch.einsum("ijtd,jrd->ijtr", d_c, img)
-    d_x = torch.einsum("ijtr,ijtd->jrd", a2, d_c)
+    img_mm, d_c_mm = _operand(img, mm_dtype), _operand(d_c, mm_dtype)
+    d_a2 = torch.einsum("ijtd,jrd->ijtr", d_c_mm, img_mm)
+    d_x = torch.einsum("ijtr,ijtd->jrd", _operand(a2, mm_dtype), d_c_mm)
     inner2 = (d_a2 * a2).sum(3, keepdim=True)
     d_a1 = gamma1 * a2 * (d_a2 - inner2)
     inner1 = (d_a1 * a1).sum(2, keepdim=True)
     d_s = a1 * (d_a1 - inner1)
-    d_words = d_w.sum(1) + torch.einsum("ijtr,jrd->itd", d_s, img)
-    d_x = d_x + torch.einsum("ijtr,itd->jrd", d_s, words)
+    d_s_mm = _operand(d_s, mm_dtype)
+    d_words = d_w.sum(1) + torch.einsum("ijtr,jrd->itd", d_s_mm, img_mm)
+    d_x = d_x + torch.einsum("ijtr,itd->jrd", d_s_mm, _operand(words, mm_dtype))
     return d_words * valid[..., None], d_x
 
 
 def damsm_sim_dimg_plain(words, img, cap_lens, g, gamma1: float = 4.0,
-                         gamma2: float = 5.0) -> torch.Tensor:
+                         gamma2: float = 5.0, mm_dtype=torch.float32) -> torch.Tensor:
     """d_img (Bj, R, D) = sum_i g[i, j] d sim[i, j] / d img[j]."""
-    return _grid_backward(words, img, cap_lens, g, gamma1, gamma2)[1]
+    return _grid_backward(words, img, cap_lens, g, gamma1, gamma2, mm_dtype)[1]
 
 
 def damsm_sim_dwords_plain(words, img, cap_lens, g, gamma1: float = 4.0,
-                           gamma2: float = 5.0) -> torch.Tensor:
+                           gamma2: float = 5.0, mm_dtype=torch.float32) -> torch.Tensor:
     """d_words (B, T, D) = sum_j g[i, j] d sim[i, j] / d words[i]; zero at
     padding."""
-    return _grid_backward(words, img, cap_lens, g, gamma1, gamma2)[0]
+    return _grid_backward(words, img, cap_lens, g, gamma1, gamma2, mm_dtype)[0]
 
 
 # --------------------------------------------------------------------------
@@ -130,9 +160,9 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("damsm_sim")
     if lib.damsm_sim_fwd.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.damsm_sim_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [f32] * 2 + [ptr]
+        lib.damsm_sim_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [f32] * 2 + [i32, ptr]
         lib.damsm_sim_fwd.restype = i32
-        lib.damsm_sim_dimg.argtypes = [ptr] * 6 + [i32] * 7 + [f32] * 2 + [ptr]
+        lib.damsm_sim_dimg.argtypes = [ptr] * 6 + [i32] * 7 + [f32] * 2 + [i32, ptr]
         lib.damsm_sim_dimg.restype = i32
         lib.damsm_sim_texts.argtypes = [i32] * 4
         lib.damsm_sim_texts.restype = i32
@@ -145,7 +175,7 @@ def _dwords_library() -> ctypes.CDLL:
     lib = _build.load("damsm_dwords")
     if lib.damsm_sim_dwords.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.damsm_sim_dwords.argtypes = [ptr] * 6 + [i32] * 7 + [f32] * 2 + [ptr]
+        lib.damsm_sim_dwords.argtypes = [ptr] * 6 + [i32] * 7 + [f32] * 2 + [i32, ptr]
         lib.damsm_sim_dwords.restype = i32
         lib.damsm_dwords_texts.argtypes = [i32] * 4
         lib.damsm_dwords_texts.restype = i32
@@ -174,9 +204,8 @@ def _check(words, img, g=None) -> None:
         if x.device != words.device or x.device.type != "cuda":
             raise ValueError(f"{name} must lie on words' CUDA device")
         if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}; the bfloat16 "
-                            "LOSS_DTYPE path of the kernels is not ported yet "
-                            "(ROADMAP.md, queue 2, K1-K3)")
+            raise TypeError(f"{name} must be float32, got {x.dtype} (mm_dtype picks "
+                            "the products' precision; the inputs stay float32)")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if not (1 <= t <= MAX_T and 4 <= d <= MAX_D and d % 4 == 0 and b >= 1
@@ -184,6 +213,19 @@ def _check(words, img, g=None) -> None:
         raise ValueError(f"the kernels take 1 <= T <= {MAX_T}, D a multiple of 4 "
                          f"in [4, {MAX_D}] and non-empty B, Bj, R; got B={b} "
                          f"Bj={bj} T={t} R={r} D={d}")
+
+
+def _bf16(mm_dtype) -> int:
+    """The C entry points' precision flag: 1 for bfloat16 operands, 0 for
+    float32."""
+    if mm_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"mm_dtype must be float32 or bfloat16, got {mm_dtype}")
+    return int(mm_dtype == torch.bfloat16)
+
+
+def _count(wrapper, bf16: int) -> None:
+    wrapper.launches += 1
+    wrapper.bf16_launches += bf16
 
 
 def _lens_on(words, cap_lens) -> torch.Tensor:
@@ -244,10 +286,11 @@ def _scratch(out, splits: int) -> torch.Tensor:
         (splits, *out.shape), dtype=torch.float32, device=out.device)
 
 
-def launch_fwd(words, img, lens, gamma1, gamma2) -> torch.Tensor:
+def launch_fwd(words, img, lens, gamma1, gamma2, mm_dtype=torch.float32) -> torch.Tensor:
     """K1 on CUDA tensors; ``lens`` (B,) int32 on the device, already
     checked.  One block per group of texts and range of images."""
     _check(words, img)
+    bf16 = _bf16(mm_dtype)
     b, t, d = words.shape
     bj, r, _ = img.shape
     lib = _library()
@@ -257,16 +300,19 @@ def launch_fwd(words, img, lens, gamma1, gamma2) -> torch.Tensor:
     with torch.cuda.device(words.device):
         err = lib.damsm_sim_fwd(
             words.data_ptr(), img.data_ptr(), lens.data_ptr(), sim.data_ptr(),
-            b, bj, t, r, d, texts, chunk, float(gamma1), float(gamma2), _stream(words))
+            b, bj, t, r, d, texts, chunk, float(gamma1), float(gamma2), bf16,
+            _stream(words))
     _raise_on(err, "damsm_sim_fwd")
-    damsm_sim_fwd.launches += 1
+    _count(damsm_sim_fwd, bf16)
     return sim
 
 
-def launch_dimg(words, img, lens, g, gamma1, gamma2) -> torch.Tensor:
+def launch_dimg(words, img, lens, g, gamma1, gamma2, mm_dtype=torch.float32
+                ) -> torch.Tensor:
     """K2 on CUDA tensors, as :func:`launch_fwd`: one block per image and
     range of text groups."""
     _check(words, img, g)
+    bf16 = _bf16(mm_dtype)
     b, t, d = words.shape
     bj, r, _ = img.shape
     lib = _library()
@@ -278,16 +324,18 @@ def launch_dimg(words, img, lens, g, gamma1, gamma2) -> torch.Tensor:
         err = lib.damsm_sim_dimg(
             words.data_ptr(), img.data_ptr(), lens.data_ptr(), g.data_ptr(),
             part.data_ptr(), out.data_ptr(), b, bj, t, r, d, texts, chunk,
-            float(gamma1), float(gamma2), _stream(words))
+            float(gamma1), float(gamma2), bf16, _stream(words))
     _raise_on(err, "damsm_sim_dimg")
-    damsm_sim_dimg.launches += 1
+    _count(damsm_sim_dimg, bf16)
     return out
 
 
-def launch_dwords(words, img, lens, g, gamma1, gamma2) -> torch.Tensor:
+def launch_dwords(words, img, lens, g, gamma1, gamma2, mm_dtype=torch.float32
+                  ) -> torch.Tensor:
     """K3 on CUDA tensors, as :func:`launch_fwd`: one block per group of
     texts and range of images."""
     _check(words, img, g)
+    bf16 = _bf16(mm_dtype)
     b, t, d = words.shape
     bj, r, _ = img.shape
     lib = _dwords_library()
@@ -299,9 +347,9 @@ def launch_dwords(words, img, lens, g, gamma1, gamma2) -> torch.Tensor:
         err = lib.damsm_sim_dwords(
             words.data_ptr(), img.data_ptr(), lens.data_ptr(), g.data_ptr(),
             part.data_ptr(), out.data_ptr(), b, bj, t, r, d, texts, chunk,
-            float(gamma1), float(gamma2), _stream(words))
+            float(gamma1), float(gamma2), bf16, _stream(words))
     _raise_on(err, "damsm_sim_dwords")
-    damsm_sim_dwords.launches += 1
+    _count(damsm_sim_dwords, bf16)
     return out
 
 
@@ -318,36 +366,38 @@ def _route(words) -> bool:
 
 
 def damsm_sim_fwd(words, img, cap_lens, gamma1: float = 4.0,
-                  gamma2: float = 5.0) -> torch.Tensor:
+                  gamma2: float = 5.0, mm_dtype=torch.float32) -> torch.Tensor:
     """K1: sim (B, Bj).  words (B, T, D), img (Bj, R, D), cap_lens (B,) ints
     in [1, T] on any device."""
     _check_lens(cap_lens, words.shape[0], words.shape[1])
     if not _route(words):
-        return damsm_sim_plain(words, img, cap_lens, gamma1, gamma2)
-    return launch_fwd(words, img, _lens_on(words, cap_lens), gamma1, gamma2)
+        return damsm_sim_plain(words, img, cap_lens, gamma1, gamma2, mm_dtype)
+    return launch_fwd(words, img, _lens_on(words, cap_lens), gamma1, gamma2, mm_dtype)
 
 
 def damsm_sim_dimg(words, img, cap_lens, g, gamma1: float = 4.0,
-                   gamma2: float = 5.0) -> torch.Tensor:
+                   gamma2: float = 5.0, mm_dtype=torch.float32) -> torch.Tensor:
     """K2: d_img (Bj, R, D) for the cotangent g (B, Bj) of sim."""
     _check_lens(cap_lens, words.shape[0], words.shape[1])
     if not _route(words):
-        return damsm_sim_dimg_plain(words, img, cap_lens, g, gamma1, gamma2)
-    return launch_dimg(words, img, _lens_on(words, cap_lens), g, gamma1, gamma2)
+        return damsm_sim_dimg_plain(words, img, cap_lens, g, gamma1, gamma2, mm_dtype)
+    return launch_dimg(words, img, _lens_on(words, cap_lens), g, gamma1, gamma2,
+                       mm_dtype)
 
 
 def damsm_sim_dwords(words, img, cap_lens, g, gamma1: float = 4.0,
-                     gamma2: float = 5.0) -> torch.Tensor:
+                     gamma2: float = 5.0, mm_dtype=torch.float32) -> torch.Tensor:
     """K3: d_words (B, T, D) for the cotangent g (B, Bj) of sim."""
     _check_lens(cap_lens, words.shape[0], words.shape[1])
     if not _route(words):
-        return damsm_sim_dwords_plain(words, img, cap_lens, g, gamma1, gamma2)
-    return launch_dwords(words, img, _lens_on(words, cap_lens), g, gamma1, gamma2)
+        return damsm_sim_dwords_plain(words, img, cap_lens, g, gamma1, gamma2, mm_dtype)
+    return launch_dwords(words, img, _lens_on(words, cap_lens), g, gamma1, gamma2,
+                         mm_dtype)
 
 
-damsm_sim_fwd.launches = 0
-damsm_sim_dimg.launches = 0
-damsm_sim_dwords.launches = 0
+for _wrapper in (damsm_sim_fwd, damsm_sim_dimg, damsm_sim_dwords):
+    _wrapper.launches = 0
+    _wrapper.bf16_launches = 0
 
 
 class DAMSMSim(torch.autograd.Function):
@@ -355,10 +405,10 @@ class DAMSMSim(torch.autograd.Function):
     when that input needs a gradient."""
 
     @staticmethod
-    def forward(ctx, words, img, cap_lens, gamma1, gamma2):
+    def forward(ctx, words, img, cap_lens, gamma1, gamma2, mm_dtype):
         ctx.save_for_backward(words, img)
-        ctx.cap_lens, ctx.gammas = cap_lens, (gamma1, gamma2)
-        return damsm_sim_fwd(words, img, cap_lens, gamma1, gamma2)
+        ctx.cap_lens, ctx.args = cap_lens, (gamma1, gamma2, mm_dtype)
+        return damsm_sim_fwd(words, img, cap_lens, gamma1, gamma2, mm_dtype)
 
     @staticmethod
     def backward(ctx, grad):
@@ -367,17 +417,19 @@ class DAMSMSim(torch.autograd.Function):
         d_words: Optional[torch.Tensor] = None
         d_img: Optional[torch.Tensor] = None
         if ctx.needs_input_grad[0]:
-            d_words = damsm_sim_dwords(words, img, ctx.cap_lens, g, *ctx.gammas)
+            d_words = damsm_sim_dwords(words, img, ctx.cap_lens, g, *ctx.args)
         if ctx.needs_input_grad[1]:
-            d_img = damsm_sim_dimg(words, img, ctx.cap_lens, g, *ctx.gammas)
-        return d_words, d_img, None, None, None
+            d_img = damsm_sim_dimg(words, img, ctx.cap_lens, g, *ctx.args)
+        return d_words, d_img, None, None, None, None
 
 
 def damsm_sim(words: torch.Tensor, img: torch.Tensor, cap_lens: torch.Tensor,
-              gamma1: float = 4.0, gamma2: float = 5.0) -> torch.Tensor:
+              gamma1: float = 4.0, gamma2: float = 5.0,
+              mm_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Differentiable sim (B, Bj): sim[i, j] is text i against image j.
 
     words (B, T, D) and img (Bj, R, D) on one device; cap_lens (B,) with every
-    length in [1, T], on any device."""
+    length in [1, T], on any device; ``mm_dtype`` the products' operand dtype
+    (float32 or bfloat16)."""
     return DAMSMSim.apply(words.contiguous(), img.contiguous(), cap_lens,
-                          float(gamma1), float(gamma2))
+                          float(gamma1), float(gamma2), mm_dtype)

@@ -18,6 +18,16 @@ devices, from the saved query, source and P:
     dP = dCtx S^T (+ the cotangent of P)
     dZ = P * (dP - sum_t dP * P)
     dQ = dZ S,   dS = dZ^T Q + P^T dCtx
+
+Query and source are float32, or both bfloat16 (the generator's compute
+dtype).  On bfloat16 inputs the forward is the Pallas kernel's on bfloat16
+q and s: the scores are products of the bfloat16 values summed in float32,
+the softmax runs in float32, and P is rounded to bfloat16 (round to nearest
+even) as the operand of ``P S``; the context and the unrounded P come out
+float32.  The backward runs in float32 from the widened query and source,
+as ``_bwd`` does, and returns dQ in the query's dtype and dS in the
+source's.  ``word_attention.launches`` counts every launch of the kernel,
+``word_attention.bf16_launches`` those of its bfloat16 instantiation.
 """
 
 from __future__ import annotations
@@ -41,14 +51,22 @@ def pad_bias(pad_mask: Optional[torch.Tensor], source: torch.Tensor) -> torch.Te
     return torch.where(pad_mask, zero + NEG_INF, zero)
 
 
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 tensor as float32 (exact); any other as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def word_attention_plain(
     query: torch.Tensor, source: torch.Tensor, bias: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """query (B, QL, D), source (B, T, D), bias (B, T) additive.
-    Returns (context (B, QL, D), attn (B, QL, T))."""
-    scores = torch.einsum("bqd,btd->bqt", query, source)
+    Returns (context (B, QL, D), attn (B, QL, T)), float32 for bfloat16
+    inputs, with P rounded to bfloat16 for the context product."""
+    q, s = _widen(query), _widen(source)
+    scores = torch.einsum("bqd,btd->bqt", q, s)
     attn = torch.softmax(scores + bias[:, None, :], dim=2)
-    context = torch.einsum("bqt,btd->bqd", attn, source)
+    p = attn.to(torch.bfloat16).float() if source.dtype == torch.bfloat16 else attn
+    context = torch.einsum("bqt,btd->bqd", p, s)
     return context, attn
 
 
@@ -58,7 +76,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("word_attention")
     fn = lib.word_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.word_attention_tile_rows.argtypes = []
         lib.word_attention_tile_rows.restype = ctypes.c_int
@@ -86,11 +104,12 @@ def _check(query, source, pad_mask):
         raise ValueError(f"the kernel takes 1 <= T <= {MAX_T}, 1 <= D <= "
                          f"{MAX_D} and non-empty B, QL; got B={b} QL={ql} "
                          f"T={t} D={d}")
+    if query.dtype not in (torch.float32, torch.bfloat16) or source.dtype != query.dtype:
+        raise TypeError(f"query and source must both be float32 or both bfloat16, got "
+                        f"{query.dtype} and {source.dtype}")
     for name, x in (("query", query), ("source", source)):
         if x.device != query.device or x.device.type != "cuda":
             raise ValueError(f"{name} must lie on query's CUDA device")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -102,33 +121,36 @@ def _launch(query, source, pad_mask):
     t = source.shape[1]
     pad = None if pad_mask is None else pad_mask.to(
         device=query.device, dtype=torch.bool).contiguous()
-    ctx = torch.empty_like(query)
+    bf16 = int(query.dtype == torch.bfloat16)
+    ctx = torch.empty((b, ql, d), dtype=torch.float32, device=query.device)
     probs = torch.empty((b, ql, t), dtype=torch.float32, device=query.device)
     lib = _library()
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         err = lib.word_attention_fwd(
             query.data_ptr(), source.data_ptr(), None if pad is None else pad.data_ptr(),
-            ctx.data_ptr(), probs.data_ptr(), b, ql, t, d, stream)
+            ctx.data_ptr(), probs.data_ptr(), b, ql, t, d, bf16, stream)
     if err != 0:
         raise RuntimeError(f"word_attention kernel launch failed: CUDA error {err}")
     word_attention.launches += 1
+    word_attention.bf16_launches += bf16
     return ctx, probs
 
 
 def word_attention_backward(query, source, p, d_ctx, d_p=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dQ, dS) for the cotangents ``d_ctx`` (B, QL, D) of the context and
-    ``d_p`` (B, QL, T) of P; either may be None (no gradient flows there)."""
-    if d_ctx is None:
-        d_ctx = torch.zeros_like(query)
-    dp = torch.bmm(d_ctx, source.transpose(1, 2))
+    ``d_p`` (B, QL, T) of P; either may be None (no gradient flows there).
+    In float32 from bfloat16 query and source; dQ and dS in their dtypes."""
+    q, s = _widen(query), _widen(source)
+    d_ctx = torch.zeros_like(q) if d_ctx is None else _widen(d_ctx)
+    dp = torch.bmm(d_ctx, s.transpose(1, 2))
     if d_p is not None:
-        dp = dp + d_p
+        dp = dp + _widen(d_p)
     dz = p * (dp - (dp * p).sum(dim=2, keepdim=True))
-    dq = torch.bmm(dz, source)
-    ds = torch.bmm(dz.transpose(1, 2), query) + torch.bmm(p.transpose(1, 2), d_ctx)
-    return dq, ds
+    dq = torch.bmm(dz, s)
+    ds = torch.bmm(dz.transpose(1, 2), q) + torch.bmm(p.transpose(1, 2), d_ctx)
+    return dq.to(query.dtype), ds.to(source.dtype)
 
 
 class WordAttention(torch.autograd.Function):
@@ -161,8 +183,8 @@ def word_attention(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused word attention.
 
-    query:    (B, QL, D) float32 image-feature queries.
-    source:   (B, T, D) float32 projected word embeddings.
+    query:    (B, QL, D) image-feature queries, float32 or bfloat16.
+    source:   (B, T, D) projected word embeddings, in the query's dtype.
     pad_mask: (B, T) bool, True at padding, or None.
 
     Returns (context (B, QL, D), attn (B, QL, T)), float32, differentiable in
@@ -174,3 +196,4 @@ def word_attention(
 
 
 word_attention.launches = 0
+word_attention.bf16_launches = 0

@@ -15,7 +15,9 @@ jointly on the words and sentence losses (the JAX package's
   rate of :func:`epoch_lr` (x0.98 per epoch while above a tenth of the
   base), as the reference does.
 
-The similarity of the words loss goes through kernels K1-K3 on the card.
+The similarity of the words loss goes through kernels K1-K3 on the card,
+with ``JAX.LOSS_DTYPE`` as their ``mm_dtype``; the encoders compute in
+``JAX.DTYPE`` with float32 parameters.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
-from sba_gan_tpu_torch.config import require_float32
+from sba_gan_tpu_torch.config import compute_dtype, loss_dtype
 from sba_gan_tpu_torch.losses.damsm import sent_loss, words_loss
 from sba_gan_tpu_torch.models.inception import CNNEncoder, HEADS
 from sba_gan_tpu_torch.models.inception import init_weights as init_image_weights
@@ -43,13 +45,13 @@ class DAMSMModels(NamedTuple):
 
 
 def build_damsm_models(cfg, n_words: int, seed: Optional[int] = None) -> DAMSMModels:
-    """The text encoder and the Inception CNNEncoder of ``cfg``, on the CPU;
-    with ``seed``, random weights drawn from it."""
-    require_float32(cfg)
+    """The text encoder and the Inception CNNEncoder of ``cfg``, on the CPU,
+    computing in ``JAX.DTYPE``; with ``seed``, random weights drawn from it."""
     models = DAMSMModels(
         text_encoder=build_text_encoder(cfg, n_words),
         image_encoder=CNNEncoder(nef=cfg.TEXT.EMBEDDING_DIM,
-                                 input_size=cfg.MODEL.INCEPTION_INPUT))
+                                 input_size=cfg.MODEL.INCEPTION_INPUT,
+                                 dtype=compute_dtype(cfg)))
     if seed is not None:
         gen = torch.Generator().manual_seed(seed)
         init_text_weights(models.text_encoder, gen)
@@ -91,11 +93,7 @@ class DAMSMTrainer:
     generator; host code drives the epochs."""
 
     def __init__(self, cfg, models: DAMSMModels, device="cuda"):
-        if cfg.JAX.LOSS_DTYPE != "float32":
-            raise NotImplementedError(
-                f"JAX.LOSS_DTYPE={cfg.JAX.LOSS_DTYPE!r}: the kernels K1-K3 run in "
-                "float32 only; their bfloat16 path is still to port (ROADMAP.md, "
-                "queue 2, K1-K3)")
+        self.mm_dtype = loss_dtype(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.text_encoder = models.text_encoder.to(self.device)
@@ -129,7 +127,8 @@ class DAMSMTrainer:
         region, code = self.image_encoder(img)
         words_emb, sent_emb = self.text_encoder(
             captions, cap_lens, keep_mask=keep_mask, generator=self.dropout_gen)
-        w0, w1 = words_loss(region, words_emb, labels, cap_lens, class_ids, g1, g2, g3)
+        w0, w1 = words_loss(region, words_emb, labels, cap_lens, class_ids, g1, g2, g3,
+                            self.mm_dtype)
         s0, s1 = sent_loss(code, sent_emb, labels, class_ids, g3)
         total = w0 + w1 + s0 + s1
         return total, dict(zip(LOG_KEYS, (w0, w1, s0, s1, total)))

@@ -25,6 +25,10 @@ back to the host.  On the card the step launches K4 twice (both refinement
 stages, forward; its gradient is ``bmm`` code), K1 once (``sim`` of the
 words loss) and K2 once (``d_img`` in the G backward); K3 never, because
 the words are detached.
+
+``JAX.DTYPE`` is the models' compute dtype (:mod:`models.layers`): the
+parameters, their gradients, Adam's moments and the EMA stay float32.
+``JAX.LOSS_DTYPE`` is the ``mm_dtype`` of K1 and K2.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from sba_gan_tpu_torch.config import require_float32
+from sba_gan_tpu_torch.config import compute_dtype, loss_dtype
 from sba_gan_tpu_torch.losses.damsm import sent_loss, words_loss
 from sba_gan_tpu_torch.losses.gan import discriminator_loss, generator_adv_loss, kl_loss
 from sba_gan_tpu_torch.models.blocks import init_weights
@@ -65,13 +69,13 @@ class GANModels(NamedTuple):
 
 
 def build_models(cfg, n_words: int, seed: Optional[int] = None) -> GANModels:
-    """The four networks of ``cfg`` on the CPU; with ``seed``, random
-    weights drawn from it."""
-    require_float32(cfg)
+    """The four networks of ``cfg`` on the CPU, computing in ``JAX.DTYPE``;
+    with ``seed``, random weights drawn from it."""
     models = GANModels(
         text_encoder=build_text_encoder(cfg, n_words),
         image_encoder=CNNEncoder(nef=cfg.TEXT.EMBEDDING_DIM,
-                                 input_size=cfg.MODEL.INCEPTION_INPUT),
+                                 input_size=cfg.MODEL.INCEPTION_INPUT,
+                                 dtype=compute_dtype(cfg)),
         generator=build_generator(cfg),
         discriminators=tuple(build_discriminators(cfg)),
     )
@@ -177,6 +181,7 @@ class GANStep:
         self.gammas = (cfg.TRAIN.SMOOTH.GAMMA1, cfg.TRAIN.SMOOTH.GAMMA2,
                        cfg.TRAIN.SMOOTH.GAMMA3)
         self.smooth_lambda = cfg.TRAIN.SMOOTH.LAMBDA
+        self.mm_dtype = loss_dtype(cfg)
         self.noise = torch.Generator(device=state.device)
         self.noise.manual_seed(cfg.JAX.SEED + 1 if seed is None else seed)
 
@@ -196,7 +201,8 @@ class GANStep:
         g1, g2, g3 = self.gammas
         labels = torch.arange(img.shape[0], device=img.device)
         region, code = self.state.image_encoder(img)
-        w0, w1 = words_loss(region, words, labels, cap_lens, class_ids, g1, g2, g3)
+        w0, w1 = words_loss(region, words, labels, cap_lens, class_ids, g1, g2, g3,
+                            self.mm_dtype)
         s0, s1 = sent_loss(code, sent, labels, class_ids, g3)
         return (w0 + w1) * self.smooth_lambda, (s0 + s1) * self.smooth_lambda
 

@@ -125,7 +125,7 @@ class GANTrainer:
         if atts:
             stage = fakes[-2] if len(fakes) > 1 else fakes[-1]
             grid = build_super_images(stage.cpu().numpy(), batch.captions.cpu().numpy(),
-                                      self.ixtoword, atts[-1].cpu().numpy())
+                                      self.ixtoword, atts[-1].float().cpu().numpy())
             paths.append(os.path.join(self.image_dir, f"attn_{gstep}.png"))
             Image.fromarray(grid).save(paths[-1])
         return paths

@@ -13,7 +13,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sba_gan_tpu_torch.config import require_float32
+from sba_gan_tpu_torch.config import compute_dtype
 from sba_gan_tpu_torch.models.blocks import init_weights
 from sba_gan_tpu_torch.models.generator import GNet, build_generator
 from sba_gan_tpu_torch.models.text_rnn import RNNEncoder
@@ -33,7 +33,7 @@ def build_text_encoder(cfg, n_words: int) -> RNNEncoder:
         raise NotImplementedError(
             f"MODEL.TEXT_ENCODER={cfg.MODEL.TEXT_ENCODER!r} is not ported yet")
     return RNNEncoder(ntoken=n_words, nhidden=cfg.TEXT.EMBEDDING_DIM,
-                      rnn_type=cfg.RNN_TYPE)
+                      rnn_type=cfg.RNN_TYPE, dtype=compute_dtype(cfg))
 
 
 class Sampler:
@@ -54,8 +54,8 @@ class Sampler:
     def from_config(cls, cfg, n_words: int, seed: int = 0,
                     weights: Optional[str] = None, device="cuda") -> "Sampler":
         """Models of ``cfg``: random weights made from ``seed``, or the
-        weights of an ``.npz`` file (see :mod:`utils.weights`)."""
-        require_float32(cfg)
+        weights of an ``.npz`` file (see :mod:`utils.weights`), computing in
+        ``JAX.DTYPE``."""
         dev = resolve_device(device)
         generator = build_generator(cfg)
         text_encoder = build_text_encoder(cfg, n_words)
@@ -105,6 +105,8 @@ class Sampler:
 
 
 def fetch(outputs) -> Tuple[list, list]:
-    """(fakes, atts) tensors -> CPU numpy arrays; the copy waits for the device."""
+    """(fakes, atts) tensors -> CPU numpy arrays, bfloat16 maps as float32;
+    the copy waits for the device."""
     fakes, atts = outputs
-    return ([f.cpu().numpy() for f in fakes], [a.cpu().numpy() for a in atts])
+    return ([f.cpu().numpy() for f in fakes],
+            [(a.float() if a.dtype == torch.bfloat16 else a).cpu().numpy() for a in atts])

@@ -17,6 +17,12 @@ JAX package uses to read reference checkpoints:
 A Flax path with no port key raises, and the module's strict
 ``load_state_dict`` raises on a port key that got no value.
 
+The parameters are float32 under any compute dtype, in both packages:
+``JAX.DTYPE: bfloat16`` casts them at each call (flax's ``dtype=``, the
+port's :mod:`models.layers`) and leaves the stored values, the running
+statistics and the optimizer state float32.  So the map is the same for a
+bfloat16 run, and a bfloat16 run's state dicts are float32.
+
 A weights file for serving is an ``.npz`` of these trees with keys joined
 by ``/``, named as the JAX package's train state names them:
 ``g_ema/...`` (the generator's EMA parameters), ``g/batch_stats/...`` and

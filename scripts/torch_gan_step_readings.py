@@ -1,6 +1,6 @@
 """Readings behind the bounds of ``chip_smoke.py``'s GAN-step check.
 
-    python3 scripts/torch_gan_step_readings.py
+    python3 scripts/torch_gan_step_readings.py [--dtype bfloat16]
 
 Runs ``chip_smoke.py``'s comparison of one full-width GAN train step
 (bird_style, WORDS_NUM 18, batch 8) on the card against the CPU for each of
@@ -13,6 +13,13 @@ TF32 convolutions (against the CPU's float32 step, as a wrong precision).
 The last line holds, per reading, the largest over the seeds (the least of
 the shares).  Needs a CUDA card; float32 with TF32 off unless
 stated.
+
+``--dtype bfloat16``: the readings behind the bounds of ``chip_smoke.py``'s
+bfloat16 GAN-step check instead.  For each of BF16_SEEDS, the still-D step
+and the DAMSM terms' image gradient under ``JAX.DTYPE`` and ``LOSS_DTYPE``
+bfloat16, on the card and on the CPU, each against the CPU's float64 step;
+one JSON line a seed, then the largest of each reading over the seeds, of
+the card and of the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
 SEEDS = range(5)
+BF16_SEEDS = range(3)
+BF16_READINGS = ("logs", "stats", "d_grads", "g_grads", "damsm_img_grad")
 SCALAR = ("logs", "stats", "d_grads", "g_grads", "damsm_img_grad",
           "params_agreeing_excess", "params_adam_excess", "params_max_over_lr",
           "ema_excess")
@@ -88,12 +97,33 @@ def faults(seed):
     return out
 
 
-def main() -> int:
+def bf16_readings() -> None:
+    per_seed = []
+    for seed in BF16_SEEDS:
+        r = cs.gan_step_bf16_readings(cs.gan_step_f64_runs(seed), seed, cpu=True)
+        print(json.dumps({"seed": seed, "dtype": "bfloat16", **r}), flush=True)
+        per_seed.append(r)
+    largest = {side: {k: max(r[side][k] for r in per_seed) for k in BF16_READINGS}
+               for side in ("cuda", "cpu")}
+    print(json.dumps({"seeds": list(BF16_SEEDS), "dtype": "bfloat16",
+                      "largest_against_float64": largest, "tol": cs.GAN_BF16_TOL}),
+          flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_gan_step_readings: CUDA is not available", file=sys.stderr)
         return 1
     cs.phase_device()
     cs.phase_build()
+    if args.dtype == "bfloat16":
+        bf16_readings()
+        return 0
     per_seed = []
     for seed in SEEDS:
         cfg, runs = cs.gan_step_runs(seed)

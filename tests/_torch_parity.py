@@ -75,3 +75,46 @@ def nchw(x):
 
 def nhwc(t):
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def _flax_leaf(path, tensor):
+    """One port tensor as the Flax leaf at ``path``: a conv kernel OIHW ->
+    HWIO, a dense kernel (out, in) -> (in, out), anything else as it is."""
+    v = tensor.detach().cpu().numpy()
+    if path[-1] == "kernel":
+        v = np.transpose(v, (2, 3, 1, 0)) if v.ndim == 4 else v.T
+    return np.ascontiguousarray(v)
+
+
+def flax_tree_from_port(abstract, state_dict, key_fn, path=()):
+    """The Flax tree shaped as ``abstract`` (e.g. from ``jax.eval_shape`` of
+    an init) filled from a port ``state_dict``: each leaf from the tensor
+    ``key_fn(path)`` names.  The inverse of the port's weight maps, so that
+    a test can skip a slow Flax init."""
+    if isinstance(abstract, dict) or hasattr(abstract, "items"):
+        return {k: flax_tree_from_port(v, state_dict, key_fn, path + (k,))
+                for k, v in abstract.items()}
+    leaf = _flax_leaf(path, state_dict[key_fn(path)])
+    assert leaf.shape == tuple(abstract.shape), (path, leaf.shape, abstract.shape)
+    return leaf
+
+
+_RNN_KEYS = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih",
+             "b_hh": "bias_hh"}
+_BN_KEYS = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+
+
+def rnn_encoder_key(path):
+    """Port key of a Flax RNNEncoder path."""
+    if path == ("embedding",):
+        return "encoder.weight"
+    return f"rnn.{_RNN_KEYS[path[1]]}_{'l0' if path[0] == 'fwd' else 'l0_reverse'}"
+
+
+def cnn_encoder_key(path):
+    """Port key of a Flax CNNEncoder path."""
+    if path[0] in ("emb_features", "emb_cnn_code"):
+        return f"{path[0]}.{'weight' if path[1] == 'kernel' else 'bias'}"
+    leaf = "weight" if path[-1] == "kernel" else _BN_KEYS[path[-1]]
+    return ".".join(path[1:-1]) + "." + leaf

@@ -244,10 +244,17 @@ def test_epoch_lr_and_reset_optimizer(port_run):
         assert len(opt.state) == 0  # moments reset
 
 
-def test_bfloat16_loss_dtype_is_refused():
-    cfg = cfg_from_dict({**TINY, "JAX": {"LOSS_DTYPE": "bfloat16"}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DAMSMTrainer(cfg, build_damsm_models(cfg, N_WORDS), device="cpu")
+@pytest.mark.parametrize("loss_dtype", ["bfloat16", "float16"])
+def test_loss_dtype_sets_the_kernels_mm_dtype(loss_dtype):
+    """``LOSS_DTYPE`` bfloat16 becomes K1-K3's ``mm_dtype``; float16, which no
+    path of the port has, raises."""
+    cfg = cfg_from_dict({**TINY, "JAX": {"LOSS_DTYPE": loss_dtype}})
+    if loss_dtype == "float16":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DAMSMTrainer(cfg, build_damsm_models(cfg, N_WORDS), device="cpu")
+        return
+    trainer = DAMSMTrainer(cfg, build_damsm_models(cfg, N_WORDS), device="cpu")
+    assert trainer.mm_dtype == torch.bfloat16
 
 
 def test_checkpointer_round_trip(tmp_path):

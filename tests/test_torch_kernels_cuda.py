@@ -13,6 +13,15 @@ the plain version.  The DAMSM kernels (K1-K3) sum over D and R through
 three softmaxes: rtol 1e-4 / atol 1e-4 on sim, and rtol 1e-3 / atol 1e-3
 times the largest entry on the gradients (their products run on the
 tensor cores in 3xTF32, which keeps float32 accuracy).
+
+The bfloat16 instantiations against the plain bfloat16 versions: K4 with
+bfloat16 query and source, P as above and the context within one bfloat16
+rounding of one P times the largest source value (atol 2^-8 max|S| + 1e-5:
+a P computed in another order can round to the neighbouring value); K1-K3
+with ``mm_dtype`` bfloat16 within the bounds of ``chip_smoke.py``'s
+(rtol / atol 1e-3 on sim, 1e-2 times the largest entry on the
+gradients); each at least ten times closer
+to the plain bfloat16 result than that is to the plain float32 one.
 """
 
 import pytest
@@ -266,3 +275,86 @@ def test_damsm_wrappers_refuse_what_they_do_not_take(cuda):
         ds.damsm_sim_dimg(w, x, lw, gw)
     with pytest.raises(RuntimeError, match="does not take this shape"):
         ds.damsm_sim_dwords(w, x, lw, gw)
+
+
+BF16 = torch.bfloat16
+DAMSM_BF16_FWD_TOL = dict(rtol=1e-3, atol=1e-3)  # as chip_smoke.py's
+DAMSM_BF16_GRAD_RTOL = 1e-2
+
+
+def _gap(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ql,t,d,lens", [
+    (1, 16384, 25, 32, [11]),  # serving
+    (6, 4133, 25, 32, [25, 18, 9, 3, 1, 0]),  # ragged QL, all-padding row
+    (2, 77, 32, 256, [32, 5]),  # the generic instance
+    (3, 300, 7, 16, None),
+])
+def test_word_attention_bf16_matches_plain(cuda, b, ql, t, d, lens):
+    q32, s32, pad = _inputs(cuda, b, ql, t, d, lens, seed=ql + t)
+    q, s = q32.to(BF16), s32.to(BF16)
+    before = (wa.word_attention.launches, wa.word_attention.bf16_launches)
+    ctx, att = wa.word_attention(q, s, pad)
+    torch.cuda.synchronize()
+    assert (wa.word_attention.launches, wa.word_attention.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert ctx.dtype == att.dtype == torch.float32
+    bias = wa.pad_bias(pad, s)
+    ctx_p, att_p = wa.word_attention_plain(q, s, bias)
+    ctx_f, _ = wa.word_attention_plain(q32, s32, bias)
+    torch.testing.assert_close(att, att_p, **TOL)
+    torch.testing.assert_close(ctx, ctx_p, rtol=1e-5,
+                               atol=2.0 ** -8 * s.float().abs().max().item() + 1e-5)
+    assert 10 * _gap(ctx, ctx_p) <= _gap(ctx_p, ctx_f)
+
+
+@pytest.mark.cuda
+def test_word_attention_bf16_gradients(cuda):
+    """The Function on bfloat16 inputs: K4's bfloat16 forward, the float32
+    backward, dQ and dS back in bfloat16, as on the CPU."""
+    q32, s32, pad = _inputs(cuda, 2, 4096, 18, 32, [18, 5], seed=3)
+    q = q32.to(BF16).requires_grad_(True)
+    s = s32.to(BF16).requires_grad_(True)
+    d_ctx = torch.randn((2, 4096, 32), generator=torch.Generator().manual_seed(1)).to(cuda)
+    ctx, att = wa.word_attention(q, s, pad)
+    (ctx * d_ctx).sum().backward()
+    assert q.grad.dtype == s.grad.dtype == BF16
+    want_q, want_s = wa.word_attention_backward(q.detach(), s.detach(), att.detach(), d_ctx)
+    torch.testing.assert_close(q.grad, want_q, rtol=0, atol=0)
+    torch.testing.assert_close(s.grad, want_s, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DAMSM_KERNELS)
+@pytest.mark.parametrize("b,t,r,d", [
+    (32, 20, 289, 256),  # DAMSM pretrain
+    (30, 20, 289, 256),  # odd groups of two texts
+    (128, 18, 289, 256),  # the GAN step's shape
+    (6, 32, 289, 256),  # T 32: one text a block
+    (7, 20, 300, 256),  # ragged R
+    (3, 20, 17, 12),  # D not a multiple of 8
+])
+def test_damsm_kernels_bf16_match_plain(cuda, kernel, b, t, r, d):
+    words, img, lens, g = _damsm_inputs(cuda, b, t, r, d, seed=b + r + 1)
+    wrapper, plain = {"fwd": (ds.damsm_sim_fwd, ds.damsm_sim_plain),
+                      "dimg": (ds.damsm_sim_dimg, ds.damsm_sim_dimg_plain),
+                      "dwords": (ds.damsm_sim_dwords, ds.damsm_sim_dwords_plain)}[kernel]
+    args = (words, img, lens) if kernel == "fwd" else (words, img, lens, g)
+    before = wrapper.bf16_launches
+    got = wrapper(*args, mm_dtype=BF16)
+    torch.cuda.synchronize()
+    assert wrapper.bf16_launches == before + 1
+    want, want_f32 = plain(*args, mm_dtype=BF16), plain(*args)
+    if kernel == "fwd":
+        tol = DAMSM_BF16_FWD_TOL
+    else:
+        tol = dict(rtol=DAMSM_BF16_GRAD_RTOL,
+                   atol=DAMSM_BF16_GRAD_RTOL * want.abs().max().item())
+    torch.testing.assert_close(got, want, **tol)
+    assert 10 * _gap(got, want) <= _gap(want, want_f32)
+    if kernel == "dwords":
+        pad = (torch.arange(t)[None, :] >= lens[:, None]).to(cuda)
+        assert torch.all(got[pad] == 0)
