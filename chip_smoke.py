@@ -63,8 +63,33 @@ and nothing of JAX.  Phases, each printing one line or more:
    saves the full GAN state, and a second call resumes for another epoch
    (kernel counts checked per step); the checkpoint restores into a trainer
    on the card, which renders the EMA sample and the attention grid;
-12. the ``kernels`` JSON line (with each kernel's launches in the GAN step),
-   then the device JSON line last.
+12. CUB tree: a CUB-200-2011 layout written to a temporary directory at
+   CUB's scale per image (JPEGs of 500 x 375, bounding boxes, 10 captions
+   each over 300 made-up words, two example caption files of 8 lines), 17
+   classes, 170 test items (10 batches of 16 and a ragged tail of 10) and
+   32 train items; every item read with 0 and with 4 reader threads must be
+   equal exactly, items/s of both printed;
+13. CUB training: ``main.main`` with bird_style on that tree (batch 16, 4
+   reader threads, one epoch = 2 steps), finite logs, the GAN step's kernel
+   counts per step;
+14. evaluation sampling: reference-layout ``netG.pth`` (the GAN CLI's EMA
+   generator), ``text_encoder.pth`` (seeded, at the tree's vocabulary) and
+   ``image_encoder.pth`` (the pretrain CLI's); ``main.main`` with eval_bird
+   and ``B_VALIDATION`` writes 170 PNGs with K4 launched twice per batch
+   (22); the first batch from the same files and noise gives those PNGs
+   again, and with TF32 off the card matches the CPU within SLICE_ATOL;
+   sampled images/s;
+15. gen_example: the same with ``B_VALIDATION`` false and ``TRAIN.MIXING``:
+   per example file, each caption's three stages, ``attention_maps.png``
+   and the four mixing sets (K4 20 launches);
+16. reproduce: ``reproduce.main`` with R-precision over 100 candidates on
+   the 170 test items (K4 44 launches: sampling and R-precision), FID
+   between its samples and the 170 real test images, ``evaluate.main`` on
+   the samples giving the same IS, the Inception classifier card against
+   CPU on one batch (TF32 off, ``CLASSIFIER_TOL``) and its images/s; the
+   scores are of random weights and mean nothing;
+17. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
+   K4's also in the evaluation phases), then the device JSON line last.
 
 Under ``JAX.DTYPE`` and ``LOSS_DTYPE`` bfloat16 (the JAX package's
 accelerator setting), beside the float32 phases: each kernel's bfloat16
@@ -1058,6 +1083,390 @@ def phase_gan_cli(damsm_model_dir, out, batch_size=32):
 
 
 # ---------------------------------------------------------------------------
+# Evaluation on CUB-layout data: the reader, training on it, sampling the
+# test split, gen_example with style mixing, IS / FID / R-precision
+# ---------------------------------------------------------------------------
+
+CUB_CLASSES = 17
+CUB_TEST = 170  # at batch 16: 10 full batches and a ragged tail of 10
+CUB_TRAIN = 32
+CUB_IMAGE = (500, 375)  # CUB's typical width x height
+CUB_VOCAB = 300
+EVAL_BATCH = 16
+RP_CANDIDATES = 100  # R-precision: 1 true caption + 99 of other classes
+EVAL_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "sba_gan_tpu_torch", "configs", "eval_bird.yml")
+# the Inception classifier, card against CPU (TF32 off): the largest
+# difference of one batch's softmax, and of its pooled activations over
+# their largest magnitude
+CLASSIFIER_TOL = {"probs": 1e-5, "pooled_rel": 1e-4}
+
+
+def write_cub_tree(root, seed=SEED):
+    """A CUB-200-2011 layout under ``root`` (whose name holds ``birds``, so
+    the reader crops to the boxes): ``CUB_TEST`` test and ``CUB_TRAIN``
+    train items over ``CUB_CLASSES`` classes, smooth random JPEGs of
+    ``CUB_IMAGE``, their bounding boxes, 10 captions each over ``CUB_VOCAB``
+    made-up words,
+    ``train``/``test`` filename and class pickles (test items spread evenly
+    over the classes), and ``example_filenames.txt`` naming two files of 8
+    captions.  Returns ``root``."""
+    import pickle
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = sorted({"".join(rng.choice(letters, int(rng.integers(3, 9))))
+                    for _ in range(CUB_VOCAB * 2)})[:CUB_VOCAB]
+    base = os.path.join(root, "CUB_200_2011", "CUB_200_2011")
+    w, h = CUB_IMAGE
+    items = {"test": [], "train": []}
+    lines_img, lines_box = [], []
+    for split, n in (("test", CUB_TEST), ("train", CUB_TRAIN)):
+        for i in range(n):
+            cls = i % CUB_CLASSES + 1
+            key = f"{cls:03d}.Species_{cls}/{split}_{i:04d}"
+            items[split].append((key, cls))
+            os.makedirs(os.path.join(base, "images", os.path.dirname(key)), exist_ok=True)
+            os.makedirs(os.path.join(root, "text", os.path.dirname(key)), exist_ok=True)
+            low = rng.uniform(0, 255, (12, 16, 3)).astype(np.uint8)
+            arr = np.asarray(Image.fromarray(low).resize((w, h), Image.BICUBIC), np.int16)
+            arr = np.clip(arr + rng.integers(-12, 13, arr.shape), 0, 255).astype(np.uint8)
+            Image.fromarray(arr).save(os.path.join(base, "images", key + ".jpg"), quality=90)
+            lines_img.append(f"{len(lines_img) + 1} {key}.jpg")
+            bw, bh = int(rng.integers(w // 5, w * 3 // 5)), int(rng.integers(h // 5, h * 3 // 5))
+            bx, by = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            lines_box.append(f"{len(lines_box) + 1} {bx}.0 {by}.0 {bw}.0 {bh}.0")
+            with open(os.path.join(root, "text", key + ".txt"), "w") as f:
+                for _ in range(10):
+                    f.write(" ".join(rng.choice(words, int(rng.integers(6, 31)))) + "\n")
+    with open(os.path.join(base, "images.txt"), "w") as f:
+        f.write("\n".join(lines_img) + "\n")
+    with open(os.path.join(base, "bounding_boxes.txt"), "w") as f:
+        f.write("\n".join(lines_box) + "\n")
+    for split, entries in items.items():
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        with open(os.path.join(root, split, "filenames.pickle"), "wb") as f:
+            pickle.dump([k for k, _ in entries], f)
+        with open(os.path.join(root, split, "class_info.pickle"), "wb") as f:
+            pickle.dump([c for _, c in entries], f)
+    os.makedirs(os.path.join(root, "example_captions"), exist_ok=True)
+    names = ["example_captions/first", "example_captions/second"]
+    for name in names:
+        with open(os.path.join(root, name + ".txt"), "w") as f:
+            for _ in range(8):
+                f.write(" ".join(rng.choice(words, int(rng.integers(4, 20)))) + "\n")
+    with open(os.path.join(root, "example_filenames.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return root
+
+
+def phase_cub_tree(root):
+    """The CUB-layout tree, then every test item read with 0 and with 4
+    reader threads (test split: center crops; train split, epoch 0: random
+    crops, flips and captions), which must be equal exactly."""
+    from sba_gan_tpu_torch.config import cfg_from_file
+    from sba_gan_tpu_torch.data.pipeline import DataLoader, build_dataset
+
+    t0 = time.perf_counter()
+    write_cub_tree(root)
+    written = time.perf_counter() - t0
+    cfg = cfg_from_file(EVAL_CFG)
+    cfg.DATA_DIR = root
+    rates, equal = {}, {}
+    for split in ("test", "train"):
+        runs = {}
+        for workers in (0, 4):
+            ds = build_dataset(cfg, False, split)
+            loader = DataLoader(ds, EVAL_BATCH, shuffle=split == "train", drop_last=False,
+                                seed=SEED, num_workers=workers)
+            t1 = time.perf_counter()
+            runs[workers] = list(loader)
+            rates[f"{split}_workers{workers}"] = len(ds) / (time.perf_counter() - t1)
+        equal[split] = len(runs[0]) == len(runs[4]) and all(
+            a.keys == b.keys and torch.equal(a.captions, b.captions)
+            and torch.equal(a.cap_lens, b.cap_lens) and torch.equal(a.class_ids, b.class_ids)
+            and all(torch.equal(x, y) for x, y in zip(a.imgs, b.imgs))
+            for a, b in zip(runs[0], runs[4]))
+    test = build_dataset(cfg, False, "test")
+    sizes = [len(b.keys) for b in DataLoader(test, EVAL_BATCH, shuffle=False,
+                                               drop_last=False)]
+    print(f"cub_tree: items/s {rates}", flush=True)
+    say("cub_tree", items_per_s=rates, write_s=written, n_words=test.n_words,
+        test_items=len(test), classes=len(set(test.class_id.tolist())),
+        test_batch_sizes=sizes, workers_equal_serial=equal)
+    if not (all(equal.values()) and len(test) == CUB_TEST
+            and sizes == [EVAL_BATCH] * (CUB_TEST // EVAL_BATCH) + [CUB_TEST % EVAL_BATCH]):
+        raise AssertionError(f"CUB reader: workers equal serial {equal}, test items "
+                             f"{len(test)}, batch sizes {sizes}")
+    return test.n_words
+
+
+def _yaml_cfg(path, out, **top):
+    """``path``'s YAML with top-level keys (and ``TRAIN``, merged) replaced,
+    written to ``out``."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    train = top.pop("TRAIN", {})
+    raw.update(top)
+    raw["TRAIN"].update(train)
+    with open(out, "w") as f:
+        yaml.safe_dump(raw, f)
+    return out
+
+
+def phase_cub_train(root, out):
+    """``main.main`` with bird_style on the CUB-layout tree (not synthetic):
+    batch 16, 4 reader threads, one epoch = 2 steps, the kernel counts set
+    to 0 just before."""
+    from sba_gan_tpu_torch import main as gan_main
+
+    yml = _yaml_cfg(GAN_CFG, os.path.join(out, "cub_train.yml"), WORKERS=4,
+                    TRAIN={"BATCH_SIZE": EVAL_BATCH})
+    wrappers = _kernel_wrappers()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    summary = gan_main.main(["--cfg", yml, "--data_dir", root, "--max_epoch", "1",
+                             "--output_dir", os.path.join(out, "cub_train")])
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    (epoch,) = summary["epochs"]
+    steps = CUB_TRAIN // EVAL_BATCH
+    want = {k: n * steps for k, n in GAN_STEP_LAUNCHES.items()}
+    finite = all(np.isfinite(v) for v in epoch["logs"].values())
+    say("cub_train", steps=epoch["steps"], logs=epoch["logs"], launches=launches,
+        seconds=seconds)
+    if not (finite and epoch["steps"] == steps and launches == want):
+        raise AssertionError(f"GAN training on the CUB tree: steps {epoch['steps']}, "
+                             f"finite {finite}, launches {launches} (want {want})")
+    return launches
+
+
+def write_reference_checkpoints(gan_model_dir, damsm_model_dir, n_words, out):
+    """Reference-layout files: ``netG.pth`` from the GAN CLI's checkpoint
+    (its EMA parameters and G's running statistics; the word projection as
+    the reference's 1 x 1 conv), ``text_encoder.pth`` a seeded text encoder
+    at the tree's vocabulary (the pretrain phase's has the synthetic one,
+    and an embedding of another size must not load), ``image_encoder.pth``
+    the pretrain phase's image encoder.  Returns (netG, text encoder)."""
+    from sba_gan_tpu_torch.config import cfg_from_file
+    from sba_gan_tpu_torch.models.text_rnn import init_weights as init_text_weights
+    from sba_gan_tpu_torch.train.sample import build_text_encoder
+    from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
+
+    gan = Checkpointer(gan_model_dir).restore()
+    net_g = {k: v for k, v in gan["generator"].items()}
+    net_g.update(gan["g_ema"])
+    net_g = {k: v[:, :, None, None] if k.endswith("att.conv_context.weight") else v
+             for k, v in net_g.items()}
+    text = build_text_encoder(cfg_from_file(EVAL_CFG), n_words)
+    init_text_weights(text, torch.Generator().manual_seed(SEED + 3))
+    paths = {name: os.path.join(out, f"{name}.pth")
+             for name in ("netG", "text_encoder", "image_encoder")}
+    torch.save(net_g, paths["netG"])
+    torch.save(text.state_dict(), paths["text_encoder"])
+    torch.save(Checkpointer(damsm_model_dir).restore()["image_encoder"],
+               paths["image_encoder"])
+    return paths["netG"], paths["text_encoder"]
+
+
+def _eval_models(cfg, net_g, net_e, n_words, device):
+    """The Sampler of the EMA generator and the text encoder read from the
+    reference files, on ``device``."""
+    from sba_gan_tpu_torch.models.generator import build_generator
+    from sba_gan_tpu_torch.train.sample import Sampler, build_text_encoder
+    from sba_gan_tpu_torch.utils import torch_port
+
+    g, text = build_generator(cfg), build_text_encoder(cfg, n_words)
+    torch_port.load_g_net(g, net_g)
+    torch_port.load_rnn_encoder(text, net_e)
+    return Sampler(cfg, g, text, device=device)
+
+
+def phase_eval_sampling(root, net_g, net_e, n_words, out):
+    """``main.main`` with eval_bird (``B_VALIDATION``) on the tree's test
+    split: one PNG per item, K4 twice per batch (counts set to 0 just
+    before).  Then the first batch from the same files and noise: at
+    PyTorch's defaults it must give the PNGs written, and with TF32 off the
+    card must match the CPU within SLICE_ATOL."""
+    from PIL import Image
+
+    from sba_gan_tpu_torch import main as gan_main
+    from sba_gan_tpu_torch.config import cfg_from_file
+    from sba_gan_tpu_torch.data.pipeline import DataLoader, build_dataset
+    from sba_gan_tpu_torch.train.loop import GANTrainer
+    from sba_gan_tpu_torch.utils.image import to_uint8
+
+    yml = _yaml_cfg(EVAL_CFG, os.path.join(out, "eval_sampling.yml"), B_VALIDATION=True,
+                    TRAIN={"NET_G": net_g, "NET_E": net_e})
+    wrappers = _kernel_wrappers()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    summary = gan_main.main(["--cfg", yml, "--data_dir", root, "--manualSeed", str(SEED),
+                             "--output_dir", os.path.join(out, "eval")])
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    samples = summary["samples_dir"]
+    pngs = sorted(os.listdir(samples))
+    batches = -(-CUB_TEST // EVAL_BATCH)
+
+    cfg = cfg_from_file(yml)
+    cfg.DATA_DIR, cfg.JAX.SEED = root, SEED  # the items' captions follow the seed
+    batch = next(iter(DataLoader(build_dataset(cfg, False, "test"), EVAL_BATCH,
+                                 shuffle=False, drop_last=False)))
+    gpu = _eval_models(cfg, net_g, net_e, n_words, "cuda")
+    z, eps = gpu.draw_noise(EVAL_BATCH, 0)  # sampling's seed of its first batch
+    written = np.stack([np.asarray(Image.open(os.path.join(
+        samples, f"{k.replace('/', '_')}_s-1.png"))) for k in batch.keys])
+    again = to_uint8(gpu.with_noise(batch.captions, batch.cap_lens, z, eps)[0][-1])
+    png_gap = int(np.abs(again.astype(np.int16) - written).max())
+    with tf32(cudnn=False, matmul=False):
+        fakes_g, _ = gpu.with_noise(batch.captions, batch.cap_lens, z, eps)
+    cpu = _eval_models(cfg, net_g, net_e, n_words, "cpu")
+    fakes_c, _ = cpu.with_noise(batch.captions, batch.cap_lens, z, eps)
+    errs = [float(np.abs(g - c).max()) for g, c in zip(fakes_g, fakes_c)]
+
+    # sampled images/s at batch 16: one batch's generation with its copy to
+    # the host, the same queued back to back without the copy (CUDA events),
+    # and the trainer's sampling of the whole split (reading, generation,
+    # PNGs) as main.main runs it
+    gen_s = []
+    for _ in range(6):
+        t1 = time.perf_counter()
+        gpu.with_noise(batch.captions, batch.cap_lens, z, eps)
+        gen_s.append(time.perf_counter() - t1)
+    gen_rate = EVAL_BATCH / statistics.median(gen_s[1:])
+    queued_ms = eager_ms(lambda: gpu.launch_with_noise(batch.captions, batch.cap_lens, z, eps),
+                         iters=20)
+    test = build_dataset(cfg, False, "test")
+    trainer = GANTrainer(cfg, os.path.join(out, "eval_timed"), test, test.n_words,
+                         test.ixtoword, device="cuda")
+    trainer.load_torch_weights(net_g=net_g, net_e_text=net_e)
+    t1 = time.perf_counter()
+    trainer.sampling("valid")
+    sampling_rate = CUB_TEST / (time.perf_counter() - t1)
+    print(f"eval_sampling: {len(pngs)} PNGs in {seconds:.2f} s of main.main; sampling "
+          f"{sampling_rate:.1f} images/s; generation {gen_rate:.1f} images/s at batch "
+          f"{EVAL_BATCH} ({queued_ms:.3f} ms a batch queued)", flush=True)
+    say("eval_sampling", pngs=len(pngs), launches=launches, batches=batches,
+        main_s=seconds, sampling_images_per_s=sampling_rate,
+        generate_images_per_s=gen_rate, generate_batch_s=gen_s,
+        generate_batch_queued_ms=queued_ms,
+        png_vs_rerun_levels=png_gap, card_vs_cpu_max_abs_err=errs, atol=SLICE_ATOL,
+        shapes=[list(f.shape) for f in fakes_g])
+    want = {k: 0 for k in wrappers}
+    want["word_attention"] = 2 * batches
+    if not (len(pngs) == CUB_TEST and launches == want and png_gap <= 1
+            and max(errs) <= SLICE_ATOL and fakes_g[-1].shape == (EVAL_BATCH, 256, 256, 3)):
+        raise AssertionError(f"eval sampling: {len(pngs)} PNGs, launches {launches} (want "
+                             f"{want}), PNG gap {png_gap}, card vs CPU {errs}")
+    return launches["word_attention"]
+
+
+def phase_gen_example(root, net_g, net_e, out):
+    """``main.main`` with eval_bird, ``B_VALIDATION`` false and
+    ``TRAIN.MIXING`` true: per example file, each caption's three stages,
+    the attention grid and the four mixing sets; K4 twice per generation
+    (one generation and four mixing sets per file)."""
+    from sba_gan_tpu_torch import main as gan_main
+
+    yml = _yaml_cfg(EVAL_CFG, os.path.join(out, "gen_example.yml"), B_VALIDATION=False,
+                    TRAIN={"NET_G": net_g, "NET_E": net_e, "MIXING": True})
+    wrappers = _kernel_wrappers()
+    reset_launches(wrappers)
+    summary = gan_main.main(["--cfg", yml, "--data_dir", root, "--manualSeed", str(SEED),
+                             "--output_dir", os.path.join(out, "gen")])
+    launches = read_launches(wrappers)
+    root_dir = summary["gen_example_dir"]
+    want_files = sorted([f"{j}_s_g{k}.png" for j in range(8) for k in range(3)]
+                        + [f"{j}_mix_{t}.png" for j in range(8) for t in ("AB", "BA", "A", "B")]
+                        + ["attention_maps.png"])
+    found = {key: sorted(os.listdir(os.path.join(root_dir, key)))
+             for key in sorted(os.listdir(root_dir))}
+    say("gen_example", files={k: len(v) for k, v in found.items()}, launches=launches)
+    want = {k: 0 for k in wrappers}
+    want["word_attention"] = 2 * 5 * 2
+    if not (sorted(found) == ["first", "second"]
+            and all(v == want_files for v in found.values()) and launches == want):
+        raise AssertionError(f"gen_example: {found}, launches {launches}")
+    return launches["word_attention"]
+
+
+def phase_reproduce(root, net_g, net_e, out):
+    """``reproduce.main`` on the tree's test split with R-precision over
+    ``RP_CANDIDATES`` candidates; FID between its samples and the 170 real test images;
+    ``evaluate.main`` on the samples must give the same IS; the classifier
+    (random weights from seed 0, 299 x 299) card against CPU on one batch,
+    TF32 off, and its images/s.  The scores are of random weights."""
+    from sba_gan_tpu_torch import evaluate, reproduce
+    from sba_gan_tpu_torch.config import cfg_from_file
+    from sba_gan_tpu_torch.data.pipeline import build_dataset
+    from sba_gan_tpu_torch.evaluation import (build_classifier, fid, load_images_from_dir,
+                                              make_activation_fn, make_predict_fn)
+
+    yml = _yaml_cfg(EVAL_CFG, os.path.join(out, "reproduce.yml"))
+    wrappers = _kernel_wrappers()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    result = reproduce.main(["--cfg", yml, "--net_e", net_e, "--net_g", net_g,
+                             "--data_dir", root, "--output_dir", os.path.join(out, "repro"),
+                             "--r_precision", "--rp_candidates", str(RP_CANDIDATES)])
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    samples = result["samples_dir"]
+    again = evaluate.main(["--dir", samples])
+
+    cfg = cfg_from_file(yml)
+    cfg.DATA_DIR = root
+    test = build_dataset(cfg, False, "test")
+    real = [test[i][0][-1] for i in range(len(test))]
+    fakes = list(load_images_from_dir(samples))
+    classifier = build_classifier(299)
+    t1 = time.perf_counter()
+    fid_value = fid(fakes, real, make_activation_fn(copy.deepcopy(classifier), "cuda"))
+    fid_s = time.perf_counter() - t1
+
+    batch = np.stack(fakes[:EVAL_BATCH])
+    predict_gpu = make_predict_fn(copy.deepcopy(classifier), "cuda")
+    with tf32(cudnn=False, matmul=False):
+        probs_g = predict_gpu(batch)
+        pooled_g = make_activation_fn(copy.deepcopy(classifier), "cuda")(batch)
+    probs_c = make_predict_fn(copy.deepcopy(classifier), "cpu")(batch)
+    pooled_c = make_activation_fn(classifier, "cpu")(batch)
+    errs = {"probs": float(np.abs(probs_g - probs_c).max()),
+            "pooled_rel": float(np.abs(pooled_g - pooled_c).max() / np.abs(pooled_c).max())}
+    big = np.stack(fakes[:32])
+    predict_gpu(big)
+    times = []
+    for _ in range(5):
+        t2 = time.perf_counter()
+        predict_gpu(big)
+        times.append(time.perf_counter() - t2)
+    clf_rate = 32 / statistics.median(times)
+    print(f"reproduce: {seconds:.2f} s for {result.get('n_images')} items; classifier "
+          f"{clf_rate:.1f} images/s at 299 (random weights: IS "
+          f"{result.get('inception_score')}, R-precision {result.get('r_precision')}, "
+          f"FID {fid_value:.4f})", flush=True)
+    say("reproduce", result=result, evaluate=again, fid=fid_value, fid_s=fid_s,
+        reproduce_s=seconds, launches=launches, classifier_images_per_s=clf_rate,
+        classifier_batch_s=times, classifier_card_vs_cpu=errs, tol=CLASSIFIER_TOL)
+    same_is = round(again["inception_score"], 4) == result["inception_score"]
+    batches = -(-CUB_TEST // EVAL_BATCH)  # K4 twice a batch: sampling, R-precision
+    want = {k: 0 for k in wrappers}
+    want["word_attention"] = 2 * 2 * batches
+    if not (result["n_images"] == CUB_TEST and same_is and launches == want
+            and np.isfinite(fid_value)
+            and np.isfinite(result["r_precision"]) and np.isfinite(result["inception_score"])
+            and all(errs[k] <= CLASSIFIER_TOL[k] for k in errs)):
+        raise AssertionError(f"reproduce: {result}, evaluate {again}, FID {fid_value}, "
+                             f"classifier card vs CPU {errs}")
+    return launches["word_attention"]
+
+
+# ---------------------------------------------------------------------------
 # bfloat16: JAX.DTYPE and JAX.LOSS_DTYPE bfloat16, the JAX package's
 # accelerator setting
 # ---------------------------------------------------------------------------
@@ -1500,7 +1909,7 @@ def main() -> int:
     from sba_gan_tpu_torch.config import preset
     from sba_gan_tpu_torch.data.vocab import synthetic_vocab
 
-    name, _ = phase_device()
+    name, smi = phase_device()
     phase_build()
     rows, gan_rows = phase_kernels()
     rows16 = phase_kernels_bf16()
@@ -1521,6 +1930,15 @@ def main() -> int:
         phase_gan_bench()
         phase_gan_bench_bf16()
         phase_gan_cli(os.path.join(out, "damsm", "Model"), out)
+        tree = os.path.join(out, "birds")
+        n_words = phase_cub_tree(tree)
+        phase_cub_train(tree, out)
+        net_g, net_e = write_reference_checkpoints(
+            os.path.join(out, "gan", "Model"), os.path.join(out, "damsm", "Model"),
+            n_words, out)
+        eval_launches = phase_eval_sampling(tree, net_g, net_e, n_words, out)
+        gen_launches = phase_gen_example(tree, net_g, net_e, out)
+        reproduce_launches = phase_reproduce(tree, net_g, net_e, out)
 
     # the kernels line: K4 at the largest serving shape of one request,
     # K1-K3 at the pretrain shape, with the GAN step's shapes beside; then
@@ -1546,6 +1964,9 @@ def main() -> int:
         "eager_ms": main_row["eager_ms"],
         "gan_step_launches": gan_launches["word_attention"],
         "gan_step": [{k: r[k] for k in gan_keys} for r in gan_rows],
+        "eval_launches": eval_launches,
+        "gen_example_launches": gen_launches,
+        "reproduce_launches": reproduce_launches,
     }]
     for kname, (source, replaces) in DAMSM_KERNELS.items():
         row, gan = damsm_rows["pretrain"][kname], damsm_rows["gan_step"][kname]
@@ -1593,6 +2014,7 @@ def main() -> int:
             "gan_step": {k: gan[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
                                              "bound_by", "eager_ms", "max_abs_err")},
         })
+    print(smi, flush=True)  # again, near the end, beside the numbers above
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

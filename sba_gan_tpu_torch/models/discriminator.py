@@ -119,7 +119,7 @@ def build_discriminators(cfg) -> List[_DNet]:
     if cfg.GAN.B_DCGAN:
         raise NotImplementedError(
             "GAN.B_DCGAN (G_DCGAN and its one discriminator) is not ported yet "
-            "(ROADMAP.md, queue 1, item 9)")
+            "(ROADMAP.md, queue 1, item 4)")
     ndf, nef = cfg.GAN.DF_DIM, cfg.TEXT.EMBEDDING_DIM
     klass = (DNet64, DNet128, DNet256)
     return [klass[i](ndf, nef, dtype=compute_dtype(cfg)) for i in range(cfg.TREE.BRANCH_NUM)]

@@ -15,6 +15,9 @@ that the JAX package's ``port_cnn_encoder`` reads.  BatchNorm is flax's
 statistics move as ``new = 0.9 old + 0.1 batch`` with the *biased* batch
 variance, not torch's unbiased one.
 
+:class:`InceptionV3Classifier` is the same trunk with torchvision's 1000-way
+``fc``: the Inception Score's classifier and FID's activations.
+
 ``CNNEncoder(dtype=...)`` is the JAX package's ``CNNEncoder(dtype=...)``:
 the parameters stay float32, the resize runs in float32, the convolutions
 and the code's linear compute in ``dtype`` (float32 or bfloat16), the
@@ -192,12 +195,13 @@ TRUNK = ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3", "Conv2d_3b_1x1",
 HEADS = ("emb_features", "emb_cnn_code")
 
 
-class CNNEncoder(nn.Module):
-    """forward(images (B, S, S, 3)) -> (regions (B, R, nef), code (B, nef)),
-    R = 289 at input 299."""
+class InceptionV3(nn.Module):
+    """The torchvision Inception-v3 trunk, Conv2d_1a_3x3 to Mixed_7c, under
+    torchvision's module names.  :meth:`taps` resizes (B, S, S, 3) images to
+    ``input_size`` and returns the 17 x 17 x 768 map after Mixed_6e (NCHW)
+    and the 2048-d average after Mixed_7c."""
 
-    def __init__(self, nef: int = 256, input_size: int = 299,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, input_size: int = 299):
         super().__init__()
         self.input_size = input_size
         self.Conv2d_1a_3x3 = BasicConv2d(3, 32, 3, stride=2)
@@ -216,11 +220,8 @@ class CNNEncoder(nn.Module):
         self.Mixed_7a = InceptionD(768)
         self.Mixed_7b = InceptionE(1280)
         self.Mixed_7c = InceptionE(2048)
-        self.emb_features = Conv2d(768, nef, 1, bias=False)
-        self.emb_cnn_code = Linear(2048, nef)
-        set_compute_dtype(self, dtype)
 
-    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def taps(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         size = self.input_size
         if images.shape[1] != size or images.shape[2] != size:
             images = resize_bilinear_align_corners(images, (size, size))
@@ -234,24 +235,81 @@ class CNNEncoder(nn.Module):
         features = x  # 17 x 17 x 768 region tap
         for name in TRUNK[13:]:
             x = getattr(self, name)(x)
-        pooled = x.mean(dim=(2, 3))
+        return features, x.mean(dim=(2, 3))
+
+
+class CNNEncoder(InceptionV3):
+    """forward(images (B, S, S, 3)) -> (regions (B, R, nef), code (B, nef)),
+    R = 289 at input 299."""
+
+    def __init__(self, nef: int = 256, input_size: int = 299,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(input_size)
+        self.emb_features = Conv2d(768, nef, 1, bias=False)
+        self.emb_cnn_code = Linear(2048, nef)
+        set_compute_dtype(self, dtype)
+
+    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        features, pooled = self.taps(images)
         region = self.emb_features(features)  # (B, nef, 17, 17)
         region = region.permute(0, 2, 3, 1).reshape(region.shape[0], -1, region.shape[1])
         return promote(region), promote(self.emb_cnn_code(pooled))
 
 
+class InceptionV3Classifier(InceptionV3):
+    """The Inception Score's classifier (the JAX package's
+    ``InceptionV3Classifier``): the trunk and torchvision's 1000-way ``fc``,
+    so a torchvision ``inception_v3`` state dict loads by its keys.
+    forward(images (B, S, S, 3) in [-1, 1]) -> float32 logits (B, 1000);
+    :meth:`pooled` -> the 2048-d activations FID compares, in at least
+    float32.  ``fc`` computes in float32 under any compute dtype, as the JAX
+    package's ``Dense`` with no ``dtype``."""
+
+    def __init__(self, num_classes: int = 1000, input_size: int = 299,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(input_size)
+        self.fc = nn.Linear(2048, num_classes)
+        set_compute_dtype(self, dtype)
+
+    def pooled(self, images: torch.Tensor) -> torch.Tensor:
+        return promote(self.taps(images)[1])
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.fc(self.pooled(images))
+
+
+def _init_trunk(model: InceptionV3, generator: torch.Generator, gain: float = 1.0) -> None:
+    """Trunk convs normal with std sqrt(gain / fan_in) (gain 1: lecun scale,
+    as flax's default), BatchNorm scale 1, bias 0, running mean 0, var 1."""
+    for name in TRUNK:
+        for m in getattr(model, name).modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.normal_(0.0, (gain / fan_in) ** 0.5, generator=generator)
+            elif isinstance(m, BatchNorm):
+                m.reset_parameters()
+
+
 @torch.no_grad()
 def init_weights(encoder: CNNEncoder, generator: torch.Generator) -> None:
-    """Random weights from ``generator``: trunk convs normal with std
-    1/sqrt(fan_in) (lecun scale, as flax's default), BatchNorm scale 1,
-    bias 0, running mean 0, var 1; both heads U(-0.1, 0.1) as the JAX
-    package draws them, and the code's bias 0."""
-    for m in encoder.modules():
-        if isinstance(m, nn.Conv2d) and m is not encoder.emb_features:
-            fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
-        elif isinstance(m, BatchNorm):
-            m.reset_parameters()
+    """Random weights from ``generator``: the trunk as :func:`_init_trunk`;
+    both heads U(-0.1, 0.1) as the JAX package draws them, and the code's
+    bias 0."""
+    _init_trunk(encoder, generator)
     encoder.emb_features.weight.uniform_(-0.1, 0.1, generator=generator)
     encoder.emb_cnn_code.weight.uniform_(-0.1, 0.1, generator=generator)
     encoder.emb_cnn_code.bias.zero_()
+
+
+@torch.no_grad()
+def init_classifier_weights(classifier: InceptionV3Classifier,
+                            generator: torch.Generator) -> None:
+    """Random weights from ``generator``: the trunk as :func:`_init_trunk`
+    with gain 2 (He scale, so that activations keep their size through the
+    ReLUs and depend on the image), ``fc`` normal with std 1/sqrt(2048),
+    bias 0.  deviation: the JAX package draws lecun-scaled weights with
+    ``jax.random``; an Inception Score of random weights is only comparable
+    within one package."""
+    _init_trunk(classifier, generator, gain=2.0)
+    classifier.fc.weight.normal_(0.0, 2048 ** -0.5, generator=generator)
+    classifier.fc.bias.zero_()

@@ -133,7 +133,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     bs = cfg.TRAIN.BATCH_SIZE
     train_loader = DataLoader(train_ds, bs, shuffle=True, drop_last=True,
-                              seed=cfg.JAX.SEED, device=device)
+                              seed=cfg.JAX.SEED, device=device, num_workers=cfg.WORKERS)
     val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=True, device=device)
 
     max_epoch = args.max_epoch or cfg.TRAIN.MAX_EPOCH

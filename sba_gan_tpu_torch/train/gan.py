@@ -99,7 +99,7 @@ class GANTrainState:
             raise NotImplementedError(
                 f"TRAIN.GRAD_ACCUM={cfg.TRAIN.GRAD_ACCUM}: gradient accumulation "
                 "(GRAD_ACCUM_MODE 'window' / 'dfresh') is still to port "
-                "(ROADMAP.md, queue 1, item 1)")
+                "(ROADMAP.md, queue 1, item 1, with multi-GPU)")
         self.device = resolve_device(device)
         dev = self.device
         self.text_encoder = models.text_encoder.to(dev).eval().requires_grad_(False)

@@ -31,7 +31,8 @@ def noise_shape(cfg, batch: int) -> Tuple[int, ...]:
 def build_text_encoder(cfg, n_words: int) -> RNNEncoder:
     if cfg.MODEL.TEXT_ENCODER != "rnn":
         raise NotImplementedError(
-            f"MODEL.TEXT_ENCODER={cfg.MODEL.TEXT_ENCODER!r} is not ported yet")
+            f"MODEL.TEXT_ENCODER={cfg.MODEL.TEXT_ENCODER!r} is not ported yet "
+            "(ROADMAP.md, queue 1, item 3)")
     return RNNEncoder(ntoken=n_words, nhidden=cfg.TEXT.EMBEDDING_DIM,
                       rnn_type=cfg.RNN_TYPE, dtype=compute_dtype(cfg))
 

@@ -1,6 +1,9 @@
-"""Image utilities: de-normalization to uint8 and a fast PNG encoder."""
+"""Image utilities: de-normalization to uint8, a fast PNG encoder and the
+samplers' PNG writer."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 from PIL import Image
@@ -11,6 +14,14 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     img = np.asarray(img, dtype=np.float32)
     img = (img + 1.0) * 127.5
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def save_image(img: np.ndarray, path: str) -> None:
+    """One (H, W, 3) image in [-1, 1] as a PNG at ``path`` (its directory is
+    made)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(png_bytes(to_uint8(img)))
 
 
 def png_bytes(a: np.ndarray, level: int = 1) -> bytes:

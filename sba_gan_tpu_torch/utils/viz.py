@@ -1,14 +1,17 @@
 """Attention-map visualization (the port's copy of the JAX package's
-``build_super_images``): per sample a [caption band / smoothed raw maps /
-overlays] block; columns are the image, the max-over-words map, then one
-map per word.  Maps are bilinearly upsampled and gaussian-smoothed
-(sigma 20, reflect padding) and min/max-normalized within the sample.
-Pure numpy + PIL on the host."""
+``build_super_images`` and ``build_super_images2``).  ``build_super_images``:
+per sample a [caption band / smoothed raw maps / overlays] block; columns
+are the image, the max-over-words map, then one map per word.  Maps are
+bilinearly upsampled and gaussian-smoothed (sigma 20, reflect padding) and
+min/max-normalized within the sample.  ``build_super_images2`` (gen_example):
+per word a threshold-masked, individually normalized map, the ``top_k``
+most confident words as [caption band / overlays].  Pure numpy + PIL on the
+host."""
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 from PIL import Image, ImageDraw, ImageFont
@@ -96,12 +99,16 @@ def _overlay(img_u8: np.ndarray, map_u8: np.ndarray, alpha: int) -> np.ndarray:
     return np.array(merged)[:, :, :3]
 
 
-def _caption_band(labels, width: int, cell_w: int, first_col: int) -> np.ndarray:
-    """One FONT_MAX-tall band of per-word colored cells with labels."""
-    band = np.full((FONT_MAX, width, 3), 255, np.uint8)
-    for j in range(len(labels)):
-        x0 = (first_col + j) * cell_w
-        band[:, x0: x0 + cell_w] = COLOR_DIC[j % len(COLOR_DIC)]
+def _caption_band(labels, width: int, cell_w: int, first_col: int,
+                  colored: bool = True) -> np.ndarray:
+    """One FONT_MAX-tall band with the labels: per-word colored cells, or
+    (``colored`` false) a near-black band."""
+    band = np.ones((FONT_MAX, width, 3), np.uint8)
+    if colored:
+        band[:] = 255
+        for j in range(len(labels)):
+            x0 = (first_col + j) * cell_w
+            band[:, x0: x0 + cell_w] = COLOR_DIC[j % len(COLOR_DIC)]
     im = Image.fromarray(band)
     d = ImageDraw.Draw(im)
     font = _font(30)
@@ -179,3 +186,56 @@ def build_super_images(
         band = _caption_band(labels, width, cell_w, first_col=2)
         blocks.append(np.concatenate([band, raw_row, ovl_row], axis=0))
     return np.concatenate(blocks, axis=0)
+
+
+def build_super_images2(
+    images: Sequence[np.ndarray],
+    captions: np.ndarray,
+    cap_lens: np.ndarray,
+    ixtoword: Dict[int, str],
+    attn_maps: Sequence[np.ndarray],
+    max_vis: int = 8,
+    top_k: int = 5,
+) -> np.ndarray:
+    """The gen_example grid (uint8): per sample, each word's map masked below
+    2 / num_words, upsampled, smoothed and normalized on its own; the
+    ``top_k`` words of most mass above twice that threshold, as
+    [caption band / overlay row], labels keeping each word's index."""
+    b = min(len(captions), max_vis)
+    imgs = np.asarray(images)
+    if imgs.ndim == 3:
+        imgs = imgs[None]
+    vis_size = imgs.shape[1]
+    cell_w = vis_size + PAD
+
+    blocks: List[np.ndarray] = []
+    for i in range(b):
+        img = _resize_img(np.asarray(imgs[i]), vis_size)
+        n = max(int(cap_lens[i]), 1)
+        attn = np.asarray(attn_maps[i], np.float32)  # (h, w, T)
+        words = [ixtoword.get(int(w), "<?>") for w in captions[i][:n]]
+        thresh = 2.0 / float(n)
+
+        maps, conf = [], []
+        for j in range(n):
+            m = attn[:, :, j]
+            conf.append(float((m * (m > 2.0 * thresh)).sum()))
+            m = m * (m > thresh)
+            up = _smooth_upsample(m, vis_size)
+            lo, hi = up.min(), up.max()
+            maps.append((up - lo) / (hi - lo + 0.01))
+        order = np.argsort(conf)[::-1][: min(top_k, n)]
+
+        width = len(order) * cell_w
+        ovl_row = np.zeros((vis_size, width, 3), np.uint8)
+        labels = []
+        for col, idx in enumerate(order):
+            m_u8 = np.clip(maps[idx] * 255.0, 0, 255).astype(np.uint8)
+            ovl_row[:, col * cell_w: col * cell_w + vis_size] = _overlay(img, m_u8, 180)
+            labels.append(f"{int(idx)}:{words[idx][:6]}")
+        band = _caption_band(labels, width, cell_w, first_col=0, colored=False)
+        blocks.append(np.concatenate([band, ovl_row], axis=0))
+    width = max(bl.shape[1] for bl in blocks)
+    padded = [np.pad(bl, ((0, 0), (0, width - bl.shape[1]), (0, 0)), constant_values=255)
+              for bl in blocks]
+    return np.concatenate(padded, axis=0)

@@ -161,17 +161,18 @@ def rnn_encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def cnn_encoder_state_dict(params: Mapping, batch_stats: Mapping
                            ) -> Dict[str, torch.Tensor]:
-    """Flax CNNEncoder ``params`` + ``batch_stats`` -> the port's CNNEncoder
+    """Flax CNNEncoder (or InceptionV3Classifier) ``params`` +
+    ``batch_stats`` -> the port's CNNEncoder (or InceptionV3Classifier)
     state_dict: ``backbone/<module>/.../conv/kernel`` -> ``<module>....conv.
     weight`` (HWIO -> OIHW), ``bn`` scale/bias/mean/var -> weight/bias/
-    running_mean/running_var, ``emb_features`` (1 x 1 conv, no bias) and
-    ``emb_cnn_code`` (dense, transposed) as they are named.  The inverse of
-    the JAX package's ``port_cnn_encoder``."""
+    running_mean/running_var, ``emb_features`` (1 x 1 conv, no bias),
+    ``emb_cnn_code`` and the classifier's ``fc`` (dense, transposed) as they
+    are named.  The inverse of the JAX package's ``port_cnn_encoder``."""
     sd: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats):
         for key, value in flatten_tree(tree).items():
             path = tuple(key.split("/"))
-            if path[0] in ("emb_features", "emb_cnn_code") and len(path) == 2:
+            if path[0] in ("emb_features", "emb_cnn_code", "fc") and len(path) == 2:
                 name = f"{path[0]}.{_LIN[path[1]]}"
             elif path[0] == "backbone" and path[-2] == "conv" and path[-1] == "kernel":
                 name = ".".join(path[1:-1]) + ".weight"

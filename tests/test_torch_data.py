@@ -38,5 +38,9 @@ def test_synthetic_set_and_loader_match_jax():
 
 
 def test_only_the_synthetic_set_is_ported():
-    with pytest.raises(NotImplementedError):
-        build_dataset(cfg_from_dict(TINY), False, "train")
+    """Of the real-data readers, the native JPEG loader and the BERT
+    vocabulary are not ported and raise before reading anything (the CUB
+    reader itself: tests/test_torch_cub_data.py)."""
+    for model in ({"IMAGE_LOADER": "native"}, {"TEXT_ENCODER": "bert"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_dataset(cfg_from_dict({**TINY, "MODEL": model}), False, "train")

@@ -106,26 +106,17 @@ def test_restored_trainer_renders_ema_sample_and_attention(cli_run):
 
 
 def test_not_ported_modes_raise(tmp_path):
-    cfg = {**GAN_TINY, "TRAIN": {**GAN_TINY["TRAIN"], "FLAG": False}}
-    yml = tmp_path / "sample.yml"
-    yml.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gan_main.main(["--cfg", str(yml), "--synthetic", "--device", "cpu",
-                       "--output_dir", str(tmp_path / "out")])
-    cfg = {**GAN_TINY, "TRAIN": {**GAN_TINY["TRAIN"], "NET_G": "netG_epoch_600.pth"}}
-    yml.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="NET_G"):
-        gan_main.main(["--cfg", str(yml), "--synthetic", "--device", "cpu",
-                       "--output_dir", str(tmp_path / "out")])
-    yml.write_text(yaml.safe_dump(GAN_TINY))
-    with pytest.raises(NotImplementedError, match="CUB reader"):
-        gan_main.main(["--cfg", str(yml), "--device", "cpu",
-                       "--output_dir", str(tmp_path / "out")])
-    trainer = GANTrainer.__new__(GANTrainer)  # the refusals need no models
-    for call in (lambda: trainer.sampling(), lambda: trainer.gen_example({}),
-                 lambda: trainer.r_precision_eval()):
+    """What the CLI still refuses, naming ROADMAP.md: gradient accumulation,
+    the native JPEG loader and the BERT text encoder."""
+    for key, value in (("TRAIN", {"GRAD_ACCUM": 2}), ("MODEL", {"IMAGE_LOADER": "native"}),
+                       ("MODEL", {"TEXT_ENCODER": "bert"})):
+        cfg = {**GAN_TINY, "DATA_DIR": str(tmp_path),
+               key: {**GAN_TINY.get(key, {}), **value}}
+        yml = tmp_path / "refused.yml"
+        yml.write_text(yaml.safe_dump(cfg))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+            gan_main.main(["--cfg", str(yml), "--device", "cpu",
+                           "--output_dir", str(tmp_path / "out")])
 
 
 def test_bench_cpu_smoke():
