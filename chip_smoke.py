@@ -88,8 +88,26 @@ and nothing of JAX.  Phases, each printing one line or more:
    the samples giving the same IS, the Inception classifier card against
    CPU on one batch (TF32 off, ``CLASSIFIER_TOL``) and its images/s; the
    scores are of random weights and mean nothing;
-17. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
-   K4's also in the evaluation phases), then the device JSON line last.
+17. BERT (bert-base: 12 layers, hidden 768, 12 heads, random weights from
+   a seed), after the evaluation phases: ``bert_encoder``, the encoder at
+   batch 8 and T 20 (captions of 2 to 20 wordpieces) on the card against
+   the CPU (TF32 off, BERT_TOL); ``gan_step_bert``, step 9 with
+   ``configs/bird_bert.yml`` (M_NUM 8, INIT_Z_CONCAT False; the same
+   readings and bounds against the CPU's float64 step; K4 2, K1 1, K2 1,
+   K3 0), then ``gan_step_mixing``, one ``bird_mixing.yml`` step ((2, B, Z)
+   noise) card against CPU, logs within GAN_STEP_TOL's, the same launches;
+   ``pretrain_step_bert``, one ``configs/DAMSM/bird_bert.yml`` train step
+   (batch 32, Inception at 299, T 20; every BERT parameter and Mixed_7a/b/c
+   train) card against CPU (PRETRAIN_BERT_TOL), K1, K2 and K3 once each,
+   the words' gradient finite and exactly 0 at padding and the text clip
+   applied; ``gan_bench_bert``, ``bench.measure`` on the flagship dims
+   with the bird_bert keys in float32 and bfloat16, beside step 10's
+   bird_style lines; ``bert_cli``, steps 8 and 11 with the BERT presets
+   (``pretrain.main``, then ``main.main`` with its checkpoint as
+   TRAIN.NET_E: train, save, resume, render);
+18. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
+   K4's also in the evaluation phases, and each kernel's on the BERT paths
+   under ``bert_paths``), then the device JSON line last.
 
 Under ``JAX.DTYPE`` and ``LOSS_DTYPE`` bfloat16 (the JAX package's
 accelerator setting), beside the float32 phases: each kernel's bfloat16
@@ -466,25 +484,23 @@ def phase_pretrain_step(cfg, batch_size):
 
 def phase_pretrain_cli(cfg_path, out):
     """``pretrain.main`` on the card: one epoch of synthetic data at full
-    width, evaluation, a checkpoint under ``out``; counts of K1-K3 set to 0
-    just before.  Then the checkpoint is restored into a trainer on the card,
-    as a resume does, and the CLI's attention dump runs on one batch."""
+    width, evaluation, a checkpoint under ``out``; the counts of K1-K4 set to
+    0 just before (K4 runs on no pretrain path).  Then the checkpoint is
+    restored into a trainer on the card, as a resume does, and the CLI's
+    attention dump runs on one batch."""
     from sba_gan_tpu_torch import pretrain
     from sba_gan_tpu_torch.config import cfg_from_file
     from sba_gan_tpu_torch.data.pipeline import build_dataset
-    from sba_gan_tpu_torch.ops import damsm_sim as dsim
     from sba_gan_tpu_torch.data.pipeline import DataLoader
     from sba_gan_tpu_torch.train.damsm import (DAMSMTrainer, build_damsm_models,
                                                image_trainable_mask)
     from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
 
-    wrappers = {"damsm_sim_fwd": dsim.damsm_sim_fwd, "damsm_sim_dimg": dsim.damsm_sim_dimg,
-                "damsm_sim_dwords": dsim.damsm_sim_dwords}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = _kernel_wrappers()
+    reset_launches(wrappers)
     summary = pretrain.main(["--cfg", cfg_path, "--synthetic", "--max_epoch", "1",
                              "--output_dir", out])
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches(wrappers)
     epoch = summary["epochs"][0]
     saved = Checkpointer(os.path.join(out, "Model")).restore()
 
@@ -504,7 +520,7 @@ def phase_pretrain_cli(cfg_path, out):
     evals = min(50, len(build_dataset(cfg, True, "test")) // cfg.TRAIN.BATCH_SIZE)
     image_start = start.image_encoder.state_dict()
     image_end = saved["image_encoder"]
-    trains = image_trainable_mask(start.image_encoder)
+    trains = image_trainable_mask(start.image_encoder, cfg.MODEL.TEXT_ENCODER == "bert")
     frozen_same = all(torch.equal(image_end[n], image_start[n])
                       for n, t in trains.items() if not t)
     heads_moved = all(not torch.equal(image_end[n], image_start[n])
@@ -517,15 +533,16 @@ def phase_pretrain_cli(cfg_path, out):
     later = epoch["step_ms"][1:]
     same = all(torch.equal(v.cpu(), saved["image_encoder"][n])
                for n, v in resumed.image_encoder.state_dict().items())
-    say("pretrain_cli", steps=steps, eval_batches=evals, launches=launches,
+    say("pretrain_cli", text_encoder=cfg.MODEL.TEXT_ENCODER, steps=steps,
+        eval_batches=evals, launches=launches,
         logs_first=epoch["logs"][0], logs_last=epoch["logs"][-1], val_loss=epoch["val"],
         step_ms=epoch["step_ms"], step_ms_median_after_first=statistics.median(later),
         images_per_s=cfg.TRAIN.BATCH_SIZE * 1e3 / statistics.median(later),
         attention_dumps=images, trunk_unchanged=frozen_same, heads_moved=heads_moved,
         text_moved=text_moved, running_stats_moved=stats_moved,
         resumed_on_card=same)
-    want = {"damsm_sim_fwd": steps + evals, "damsm_sim_dimg": steps,
-            "damsm_sim_dwords": steps}
+    want = {"word_attention": 0, "damsm_sim_fwd": steps + evals,
+            "damsm_sim_dimg": steps, "damsm_sim_dwords": steps}
     if not (finite and np.isfinite(epoch["val"]) and frozen_same and heads_moved
             and text_moved and stats_moved and launches == want and same
             and images == [os.path.basename(dump)]):
@@ -717,17 +734,18 @@ def read_launches(wrappers, bf16: bool = False) -> dict:
     return {k: fn.bf16_launches if bf16 else fn.launches for k, fn in wrappers.items()}
 
 
-def gan_step_inputs(seed=SEED, batch_size=8):
-    """bird_style at WORDS_NUM 18: the config, random models from ``seed``
-    (random running statistics in the eval-mode Inception), one synthetic
-    batch and the noise of one step, all on the CPU."""
+def gan_step_inputs(seed=SEED, batch_size=8, cfg_path=None):
+    """bird_style (or the preset ``cfg_path``) at WORDS_NUM 18: the config,
+    random models from ``seed`` (random running statistics in the eval-mode
+    Inception), one synthetic batch and the noise of one step, all on the
+    CPU."""
     from sba_gan_tpu_torch.config import cfg_from_file
     from sba_gan_tpu_torch.data.cub import SyntheticDataset
     from sba_gan_tpu_torch.data.pipeline import collate
     from sba_gan_tpu_torch.train.gan import build_models
     from sba_gan_tpu_torch.train.sample import noise_shape
 
-    cfg = cfg_from_file(GAN_CFG)
+    cfg = cfg_from_file(cfg_path or GAN_CFG)
     cfg.TEXT.WORDS_NUM = 18
     cfg.TRAIN.BATCH_SIZE = batch_size
     models = build_models(cfg, N_WORDS, seed=seed)
@@ -925,12 +943,12 @@ def gan_step_failures(r) -> list:
     return bad
 
 
-def gan_step_runs(seed=SEED, batch_size=8):
+def gan_step_runs(seed=SEED, batch_size=8, cfg_path=None):
     """From one set of inputs: the step on the card and on the CPU (float32,
     TF32 off), the same with the Ds held still, the CPU's still step in
     float64, and the card's still step at the bench's precision (GAN_TF32);
     the DAMSM terms' image gradient (``damsm``) the same four ways."""
-    cfg, models, batch, z, eps = gan_step_inputs(seed, batch_size)
+    cfg, models, batch, z, eps = gan_step_inputs(seed, batch_size, cfg_path)
     still = still_ds(cfg)
 
     def run(c, device, dtype=torch.float32):
@@ -959,15 +977,18 @@ def gan_step_f64_runs(seed=SEED, batch_size=8):
             "damsm": {"cpu64": damsm_grad_run(cfg, models, batch, "cpu", torch.float64)}}
 
 
-def phase_gan_step(batch_size=8):
-    """One full-width GAN train step on the card against the CPU
-    (:func:`gan_step_runs`), held to the bounds above; the card's launches
-    in each of its steps: K4 twice, K1 and K2 once, K3 never; K1 and K2
-    once in the DAMSM terms alone."""
-    cfg, runs = gan_step_runs(SEED, batch_size)
+def phase_gan_step(batch_size=8, cfg_path=None, phase="gan_step"):
+    """One full-width GAN train step (bird_style, or the preset
+    ``cfg_path``) on the card against the CPU (:func:`gan_step_runs`), held
+    to the bounds above; the card's launches in each of its steps: K4
+    twice, K1 and K2 once, K3 never; K1 and K2 once in the DAMSM terms
+    alone."""
+    cfg, runs = gan_step_runs(SEED, batch_size, cfg_path)
     r = gan_step_readings(cfg, runs)
     dm = runs.pop("damsm")
-    say("gan_step", batch=batch_size, words_num=cfg.TEXT.WORDS_NUM,
+    say(phase, batch=batch_size, words_num=cfg.TEXT.WORDS_NUM,
+        text_encoder=cfg.MODEL.TEXT_ENCODER, m_num=cfg.GAN.M_NUM,
+        init_z_concat=cfg.GAN.INIT_Z_CONCAT,
         logs_cuda=runs["cuda"]["logs"], logs_cpu=runs["cpu"]["logs"],
         damsm_logs={k: v["logs"] for k, v in dm.items()}, readings=r,
         tol={**GAN_STEP_TOL, "params_sign_share_above": GAN_SIGN_SHARE,
@@ -978,14 +999,14 @@ def phase_gan_step(batch_size=8):
         step_s={k: v["seconds"] for k, v in runs.items()})
     bad = gan_step_failures(r)
     if bad or not all(np.isfinite(v) for v in runs["cuda"]["logs"].values()):
-        raise AssertionError(f"GAN step: card and CPU disagree in {bad}")
+        raise AssertionError(f"{phase}: card and CPU disagree in {bad}")
     none = dict.fromkeys(GAN_KERNELS, 0)
     damsm_only = {**none, "damsm_sim_fwd": 1, "damsm_sim_dimg": 1}
     for k, run in list(runs.items()) + [(f"damsm_{k}", v) for k, v in dm.items()]:
         want = ((damsm_only if k.startswith("damsm") else GAN_STEP_LAUNCHES)
                 if "cuda" in k else none)
         if run["launches"] != want:
-            raise AssertionError(f"GAN step {k}: launches {run['launches']} (want {want})")
+            raise AssertionError(f"{phase} {k}: launches {run['launches']} (want {want})")
     return runs["cuda"]["launches"], {**runs, "damsm": dm}
 
 
@@ -1016,9 +1037,10 @@ def phase_gan_bench():
     return line
 
 
-def phase_gan_cli(damsm_model_dir, out, batch_size=32):
+def phase_gan_cli(damsm_model_dir, out, batch_size=32, cfg_path=None, name="gan"):
     """``main.main`` on the card: one epoch of synthetic data at full width
-    with the pretrain CLI's encoders, a checkpoint, then a second call that
+    (bird_style, or the preset ``cfg_path``) with the pretrain CLI's
+    encoders, a checkpoint under ``out/name``, then a second call that
     resumes for one more epoch; the kernel counts of each call checked per
     step.  The checkpoint then restores into a trainer on the card, which
     renders the EMA sample and the attention grid of one batch."""
@@ -1030,13 +1052,13 @@ def phase_gan_cli(damsm_model_dir, out, batch_size=32):
     from sba_gan_tpu_torch.train.loop import GANTrainer
     from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
 
-    with open(GAN_CFG) as f:
+    with open(cfg_path or GAN_CFG) as f:
         raw = yaml.safe_load(f)
     raw["TRAIN"].update(BATCH_SIZE=batch_size, NET_E=damsm_model_dir)
-    yml = os.path.join(out, "gan.yml")
+    yml = os.path.join(out, f"{name}.yml")
     with open(yml, "w") as f:
         yaml.safe_dump(raw, f)
-    argv = ["--cfg", yml, "--synthetic", "--output_dir", os.path.join(out, "gan")]
+    argv = ["--cfg", yml, "--synthetic", "--output_dir", os.path.join(out, name)]
     wrappers = _kernel_wrappers()
     calls = []
     for max_epoch in (1, 2):
@@ -1050,7 +1072,7 @@ def phase_gan_cli(damsm_model_dir, out, batch_size=32):
         calls.append(dict(resumed_from=summary["resumed_from"], steps=steps,
                           launches=launches, seconds=seconds,
                           epochs=summary["epochs"]))
-    ckpt = Checkpointer(os.path.join(out, "gan", "Model"))
+    ckpt = Checkpointer(os.path.join(out, name, "Model"))
     saved = ckpt.restore()
     damsm = Checkpointer(damsm_model_dir).restore()
     encoders_kept = all(torch.equal(saved[k][n], v) for k in ("text_encoder", "image_encoder")
@@ -1058,7 +1080,7 @@ def phase_gan_cli(damsm_model_dir, out, batch_size=32):
     cfg = cfg_from_file(yml)
     cfg.JAX.SEED = 100  # the CLI's --manualSeed default
     ds = build_dataset(cfg, True, "train")
-    trainer = GANTrainer(cfg, os.path.join(out, "gan"), ds, ds.n_words, ds.ixtoword,
+    trainer = GANTrainer(cfg, os.path.join(out, name), ds, ds.n_words, ds.ixtoword,
                          device="cuda")
     resumed = trainer.resume()
     batch = next(iter(DataLoader(ds, batch_size, shuffle=False, device="cuda")))
@@ -1066,7 +1088,8 @@ def phase_gan_cli(damsm_model_dir, out, batch_size=32):
     pngs = [os.path.basename(p) for p in paths
             if open(p, "rb").read(8) == b"\x89PNG\r\n\x1a\n"]
     finite = all(np.isfinite(v) for c in calls for e in c["epochs"] for v in e["logs"].values())
-    say("gan_cli", batch=batch_size, calls=[{k: v for k, v in c.items()} for c in calls],
+    say(f"{name}_cli", text_encoder=cfg.MODEL.TEXT_ENCODER, batch=batch_size,
+        calls=[{k: v for k, v in c.items()} for c in calls],
         checkpoints=ckpt.steps(), checkpoint_step=saved["step"],
         encoders_from_net_e=encoders_kept, resumed_on_card=resumed, images=pngs)
     want_steps = len(ds) // batch_size
@@ -1890,6 +1913,293 @@ def phase_gan_bench_bf16():
     return line
 
 
+# ---------------------------------------------------------------------------
+# The BERT text encoder: bert-base (12 layers, hidden 768, 12 heads,
+# intermediate 3072) in the bird_bert and bird_mixing GAN steps and in the
+# DAMSM/bird_bert pretraining, fed through K1-K4
+# ---------------------------------------------------------------------------
+
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sba_gan_tpu_torch",
+                       "configs")
+BERT_CFG = os.path.join(CONFIGS, "bird_bert.yml")
+MIXING_CFG = os.path.join(CONFIGS, "bird_mixing.yml")
+BERT_PRETRAIN_CFG = os.path.join(CONFIGS, "DAMSM", "bird_bert.yml")
+# card against CPU, both float32 with TF32 off: bert-base's twelve layers
+# sum in another order; relative to each output's largest entry
+BERT_TOL = 1e-4
+# the BERT pretrain step, card against CPU (TF32 off): as PRETRAIN_TOL, the
+# gradients relative to the largest entry of their side (text, image): the
+# attention key biases' gradients are 0 but for rounding (softmax ignores a
+# constant added to every score of a query); the clipped text gradient's
+# norm against min(its norm before the clip, 0.25).  The image side's
+# gradients (Mixed_7a/b/c through three train-mode BatchNorms on 8 x 8 maps,
+# and the heads) read 6.8e-3 card against CPU (H100, first reading), so
+# they are also held to the CPU's float64 step: the card's float32 no
+# further from it than BF16_FACTOR (2) times the CPU's float32, and within
+# the bound above or that.
+PRETRAIN_BERT_TOL = {"logs": 1e-4, "grads": 1e-3, "stats": 1e-4, "clip": 1e-4}
+BERT_PRETRAIN_LAUNCHES = {"word_attention": 0, "damsm_sim_fwd": 1, "damsm_sim_dimg": 1,
+                          "damsm_sim_dwords": 1}
+
+
+def bert_captions(batch_size, t, vocab, seed):
+    """(captions (B, t) ids in [1, vocab) zero after each length, lengths
+    (B,) from 2 to t, the first t and the second 2), on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.randint(2, t + 1, (batch_size,), generator=gen)
+    lens[0], lens[1] = t, 2
+    ids = torch.randint(1, vocab, (batch_size, t), generator=gen)
+    return torch.where(torch.arange(t)[None, :] < lens[:, None], ids, 0), lens
+
+
+def phase_bert_encoder(batch_size=8, t=20):
+    """bert-base (random weights from SEED) on the card against the CPU,
+    TF32 off: the words (zero at padding) and sentence codes of captions of
+    2 to ``t`` wordpieces, and the card's forward time."""
+    from sba_gan_tpu_torch.models.text_bert import BERT_BASE, BertEncoder, init_weights
+
+    enc = BertEncoder(nef=256)
+    init_weights(enc, torch.Generator().manual_seed(SEED))
+    captions, lens = bert_captions(batch_size, t, BERT_BASE["vocab_size"], SEED + 5)
+    out = {}
+    with tf32(cudnn=False, matmul=False), torch.no_grad():
+        for device in ("cuda", "cpu"):
+            m = copy.deepcopy(enc).to(device).eval()
+            out[device] = [x.cpu() for x in m(captions.to(device), lens)]
+            if device == "cuda":
+                caps = captions.to(device)
+                ms = eager_ms(lambda: m(caps, lens), iters=20)
+    errs = {k: _rel_err(a, b) for k, a, b in zip(("words", "sent"), out["cuda"], out["cpu"])}
+    pad = torch.arange(t)[None, :] >= lens[:, None]
+    pad_zero = bool(torch.all(out["cuda"][0][pad] == 0))
+    say("bert_encoder", batch=batch_size, words_num=t, lens=lens.tolist(),
+        params=sum(p.numel() for p in enc.parameters()), rel_err=errs, tol=BERT_TOL,
+        padding_zero=pad_zero, forward_ms_eager=ms)
+    if not (pad_zero and all(e <= BERT_TOL for e in errs.values())
+            and all(torch.isfinite(x).all() for x in out["cuda"])):
+        raise AssertionError(f"bert_encoder: card and CPU disagree {errs} (tol {BERT_TOL}), "
+                             f"padding zero {pad_zero}")
+
+
+def phase_gan_step_bert(batch_size=8):
+    """The bird_bert step (:func:`phase_gan_step` with its preset: the same
+    readings and bounds against the CPU's float64 step, K4 2, K1 1, K2 1, K3
+    0); then one bird_mixing step ((2, B, Z) noise) on the card and on the
+    CPU (TF32 off): finite logs within GAN_STEP_TOL's, the same launches."""
+    from sba_gan_tpu_torch.train.gan import log_keys
+
+    launches, runs = phase_gan_step(batch_size, BERT_CFG, "gan_step_bert")
+    del runs
+    cfg, models, batch, z, eps = gan_step_inputs(SEED, batch_size, MIXING_CFG)
+    with tf32(cudnn=False, matmul=False):
+        card = gan_step_run(cfg, models, batch, z, eps, "cuda")
+        cpu = gan_step_run(cfg, models, batch, z, eps, "cpu")
+    keys = log_keys(cfg.TREE.BRANCH_NUM)
+    err = max(abs(card["logs"][k] - cpu["logs"][k]) / abs(cpu["logs"][k]) for k in keys)
+    say("gan_step_mixing", batch=batch_size, noise=list(z.shape), logs_cuda=card["logs"],
+        logs_cpu=cpu["logs"], rel_err_logs=err, tol=GAN_STEP_TOL["logs"],
+        launches={"cuda": card["launches"], "cpu": cpu["launches"]},
+        step_s={"cuda": card["seconds"], "cpu": cpu["seconds"]})
+    if not (cfg.TRAIN.MIXING and z.dim() == 3 and err <= GAN_STEP_TOL["logs"]
+            and all(np.isfinite(v) for v in card["logs"].values())
+            and card["launches"] == GAN_STEP_LAUNCHES
+            and cpu["launches"] == dict.fromkeys(GAN_KERNELS, 0)):
+        raise AssertionError(f"gan_step_mixing: logs {err}, launches {card['launches']}")
+    return launches, card["launches"]
+
+
+def _bert_raw_grads(trainer, batch, device):
+    """The losses of the trainer's step on ``batch`` (train mode, the
+    Inception running statistics not moved, nothing updated): the text
+    side's gradient norm before the clip, and the gradient to the words."""
+    from sba_gan_tpu_torch.losses.damsm import sent_loss, words_loss
+    from sba_gan_tpu_torch.models.norms import frozen_running_stats
+
+    g1, g2, g3 = trainer.gammas
+    trainer.text_encoder.train()
+    trainer.image_encoder.train()
+    labels = torch.arange(batch.captions.shape[0], device=device)
+    class_ids = batch.class_ids.to(device)
+    with frozen_running_stats(trainer.image_encoder):
+        region, code = trainer.image_encoder(batch.imgs[-1].to(device))
+    words, sent = trainer.text_encoder(batch.captions.to(device), batch.cap_lens)
+    w0, w1 = words_loss(region, words, labels, batch.cap_lens, class_ids, g1, g2, g3)
+    s0, s1 = sent_loss(code, sent, labels, class_ids, g3)
+    grads = torch.autograd.grad(w0 + w1 + s0 + s1, [words] + trainer.text_params)
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                 for g in grads[1:]])).item()
+    return norm, grads[0].cpu()
+
+
+def _group_rel_errs(got: dict, want: dict) -> dict:
+    """|got - want| per tensor over the largest entry of all of ``want``."""
+    scale = max(v.abs().max().item() for v in want.values()) or 1.0
+    return {n: (g.cpu() - want[n].cpu()).abs().max().item() / scale for n, g in got.items()}
+
+
+def phase_pretrain_step_bert(batch_size=32):
+    """One full-width DAMSM/bird_bert train step (bert-base, Inception at
+    299, T 20) on the card against the CPU from the same weights and batch,
+    TF32 off: losses, every BERT gradient after the clip, the Mixed_7a/b/c
+    and head gradients, running statistics; K1, K2 and K3 once each on the
+    card.  Before the step, on both: the words' gradient (finite, exactly 0
+    at padding) and the text gradient's norm, against which the clip is
+    checked."""
+    from sba_gan_tpu_torch.config import cfg_from_file
+    from sba_gan_tpu_torch.data.cub import SyntheticDataset
+    from sba_gan_tpu_torch.data.pipeline import collate
+    from sba_gan_tpu_torch.train.damsm import LOG_KEYS, DAMSMTrainer, build_damsm_models
+
+    cfg = cfg_from_file(BERT_PRETRAIN_CFG)
+    cfg.TRAIN.BATCH_SIZE = batch_size
+    models = build_damsm_models(cfg, N_WORDS, seed=SEED)
+    ds = SyntheticDataset(num_examples=batch_size, base_size=cfg.TREE.BASE_SIZE,
+                          branch_num=cfg.TREE.BRANCH_NUM, words_num=cfg.TEXT.WORDS_NUM,
+                          n_words=N_WORDS, seed=SEED)
+    batch = collate([ds[i] for i in range(batch_size)])
+    pad = torch.arange(cfg.TEXT.WORDS_NUM)[None, :] >= batch.cap_lens[:, None]
+    wrappers = _kernel_wrappers()
+    runs = {}
+    with tf32(cudnn=False, matmul=False):
+        for name, device, dtype in (("cuda", "cuda", torch.float32),
+                                    ("cpu", "cpu", torch.float32),
+                                    ("cpu64", "cpu", torch.float64)):
+            mine = copy.deepcopy(models)
+            for m in mine:
+                m.to(dtype)
+            trainer = DAMSMTrainer(cfg, mine, device=device)
+            img = batch.imgs[-1].to(device, dtype)
+            raw_norm, words_grad = _bert_raw_grads(trainer, batch._replace(imgs=[img]),
+                                                   device)
+            reset_launches(wrappers)
+            t0 = time.perf_counter()
+            logs = trainer.train_step(img, batch.captions.to(device),
+                                      batch.cap_lens, batch.class_ids.to(device))
+            logs = {k: float(v) for k, v in logs.items()}
+            seconds = time.perf_counter() - t0
+            launches = read_launches(wrappers)
+            text = {n: p.grad for n, p in trainer.text_encoder.named_parameters()}
+            image = {n: p.grad for n, p in trainer.image_encoder.named_parameters()
+                     if p.grad is not None}
+            clipped = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in text.values()])).item()
+            stats = {n: b for n, b in trainer.image_encoder.state_dict().items()
+                     if n.endswith(("running_mean", "running_var"))}
+            runs[name] = dict(
+                logs=logs, text=text, image=image, stats=stats, launches=launches,
+                seconds=seconds, raw_norm=raw_norm, clipped_norm=clipped,
+                clip_err=abs(clipped - min(raw_norm, cfg.TRAIN.RNN_GRAD_CLIP))
+                / min(raw_norm, cfg.TRAIN.RNN_GRAD_CLIP),
+                finite=all(torch.isfinite(g).all().item() for g in text.values())
+                and bool(torch.isfinite(words_grad).all()),
+                pad_grad_zero=bool(torch.all(words_grad[pad] == 0)),
+                real_grad_nonzero=bool(torch.all(words_grad[~pad].abs().sum(-1) > 0)))
+    gpu, cpu, cpu64 = runs["cuda"], runs["cpu"], runs["cpu64"]
+    image = {k: _group_rel_errs(runs[k]["image"], cpu64["image"]) for k in ("cuda", "cpu")}
+    image_card = _group_rel_errs(gpu["image"], cpu["image"])
+    errs = {
+        "logs": max(abs(gpu["logs"][k] - cpu["logs"][k]) / abs(cpu["logs"][k])
+                    for k in LOG_KEYS),
+        "grads_text": max(_group_rel_errs(gpu["text"], cpu["text"]).values()),
+        "stats": max(_rel_err(v, cpu["stats"][n]) for n, v in gpu["stats"].items()),
+        "clip": max(gpu["clip_err"], cpu["clip_err"]),
+    }
+    image_f64 = {k: max(v.values()) for k, v in image.items()}
+    image_bound = max(PRETRAIN_BERT_TOL["grads"], BF16_FACTOR * image_f64["cpu"])
+    trained = sorted({n.split(".")[0] for n in gpu["image"]})
+    say("pretrain_step_bert", batch=batch_size, words_num=cfg.TEXT.WORDS_NUM,
+        logs_cuda=gpu["logs"], logs_cpu=cpu["logs"], rel_err=errs, tol=PRETRAIN_BERT_TOL,
+        image_grads_card_vs_cpu=max(image_card.values()),
+        image_grads_vs_cpu_float64=image_f64, image_grads_bound=image_bound,
+        worst_image_card_vs_cpu=_worst(image_card),
+        worst_image_card_vs_cpu64=_worst(image["cuda"]),
+        worst_image_cpu_vs_cpu64=_worst(image["cpu"]),
+        worst_text_card_vs_cpu=_worst(_group_rel_errs(gpu["text"], cpu["text"])),
+        text_params=sum(g.numel() for g in gpu["text"].values()),
+        image_modules_trained=trained,
+        text_grad_norm_before_clip={k: r["raw_norm"] for k, r in runs.items()},
+        text_grad_norm_after_clip={k: r["clipped_norm"] for k, r in runs.items()},
+        words_grad_zero_at_padding={k: r["pad_grad_zero"] for k, r in runs.items()},
+        finite={k: r["finite"] for k, r in runs.items()},
+        launches={k: r["launches"] for k, r in runs.items()},
+        step_s={k: r["seconds"] for k, r in runs.items()})
+    bad = [k for k, v in errs.items()
+           if not v <= PRETRAIN_BERT_TOL[k.split("_")[0]]]
+    if not image_f64["cuda"] <= image_bound:
+        bad.append("grads_image")
+    if bad or trained != sorted(["Mixed_7a", "Mixed_7b", "Mixed_7c", "emb_cnn_code",
+                                 "emb_features"]):
+        raise AssertionError(f"pretrain_step_bert: card and CPU disagree in {bad} "
+                             f"({errs}); trained image modules {trained}")
+    if not all(r["finite"] and r["pad_grad_zero"] and r["real_grad_nonzero"]
+               for r in runs.values()):
+        raise AssertionError("pretrain_step_bert: BERT gradients not finite, or the "
+                             "words' gradient not 0 at padding")
+    if gpu["launches"] != BERT_PRETRAIN_LAUNCHES or any(
+            v for r in (cpu, cpu64) for v in r["launches"].values()):
+        raise AssertionError(f"pretrain_step_bert: launches {gpu['launches']} "
+                             f"(want {BERT_PRETRAIN_LAUNCHES})")
+    return gpu["launches"]
+
+
+def phase_gan_bench_bert(style_lines):
+    """``bench.measure`` on the flagship dims with the bird_bert keys
+    (MODEL.TEXT_ENCODER bert, M_NUM 8, INIT_Z_CONCAT False; batch 128,
+    WORDS_NUM 18), in each dtype of ``style_lines`` (the bird_style bench
+    lines of this call, printed beside): images/s, device ms, launches, peak
+    memory, mfu and the text phase's device ms; K4 2, K1 1, K2 1 a step."""
+    from sba_gan_tpu_torch import bench
+    from sba_gan_tpu_torch.config import cfg_from_dict
+
+    out = {}
+    for dtype, style in style_lines.items():
+        d = copy.deepcopy(bench.FLAGSHIP)
+        d["MODEL"] = {"TEXT_ENCODER": "bert"}
+        d["GAN"].update(M_NUM=8, INIT_Z_CONCAT=False)
+        cfg = cfg_from_dict(d)
+        cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = dtype
+        line = bench.measure(cfg, cfg.TRAIN.BATCH_SIZE, torch.device("cuda"))
+        named = line["profile"]["hand_written_kernels"]
+        per_step = {k: named[k]["launches_per_step"] for k in GAN_KERNELS}
+
+        def summary(ln):
+            return {"batch": ln["batch"], "images_per_sec": ln["images_per_sec"],
+                    "ms_per_step": ln["ms_per_step"], "step_ms_median": ln["step_ms_median"],
+                    "device_ms_per_step": ln["profile"]["device_ms_per_step"],
+                    "launches_per_step": ln["profile"]["launches_per_step"],
+                    "device_idle_share": ln["profile"]["device_idle_share"],
+                    "peak_memory_bytes": ln["peak_memory_bytes"], "mfu": ln["mfu"],
+                    "flops_per_step": ln["flops_per_step"],
+                    "text_device_ms": ln["phase_device_ms"]["text"]}
+        mine = summary(line)
+        say("gan_bench_bert", dtype=dtype, out_of_memory=line["out_of_memory"], **mine,
+            phase_device_ms=line["phase_device_ms"],
+            component_device_ms=line["component_device_ms"],
+            kernel_launches_per_step=per_step,
+            kernel_ms_per_step={k: named[k]["device_ms_per_step"] for k in GAN_KERNELS},
+            tf32={"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                  "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32},
+            bird_style=summary(style),
+            images_per_sec_over_bird_style=mine["images_per_sec"] / style["value"])
+        if not line["finite"] or per_step != GAN_STEP_LAUNCHES:
+            raise AssertionError(f"gan_bench_bert {dtype}: finite {line['finite']}, kernel "
+                                 f"launches per step {per_step} (want {GAN_STEP_LAUNCHES})")
+        out[dtype] = per_step
+    return out
+
+
+def phase_bert_cli(out, batch_size=32):
+    """``pretrain.main`` with DAMSM/bird_bert on synthetic data (one epoch of
+    4 steps, evaluation, a checkpoint; K1-K3 counted, Mixed_7a/b/c and every
+    BERT parameter moving), then ``main.main`` with bird_bert and that
+    checkpoint as TRAIN.NET_E: train, save, resume and render
+    (:func:`phase_pretrain_cli`, :func:`phase_gan_cli`)."""
+    damsm = os.path.join(out, "bert_damsm")
+    pretrain_launches = phase_pretrain_cli(BERT_PRETRAIN_CFG, damsm)
+    calls = phase_gan_cli(os.path.join(damsm, "Model"), out, batch_size, BERT_CFG, "bert_gan")
+    return pretrain_launches, [c["launches"] for c in calls]
+
+
 DAMSM_KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     "damsm_sim_fwd": ("sba_gan_tpu_torch/ops/csrc/damsm_sim.cu",
                       "sba_gan_tpu/ops/damsm_sim.py:157"),
@@ -1923,12 +2233,12 @@ def main() -> int:
     pretrain_runs = phase_pretrain_step(preset("DAMSM/bird"), batch_size=32)
     pretrain16 = phase_pretrain_step_bf16(preset("DAMSM/bird"), 32, pretrain_runs)
     with tempfile.TemporaryDirectory() as out:
-        launches.update(phase_pretrain_cli(PRETRAIN_CFG, os.path.join(out, "damsm")))
+        pretrain_cli = phase_pretrain_cli(PRETRAIN_CFG, os.path.join(out, "damsm"))
+        launches.update((k, v) for k, v in pretrain_cli.items() if k in DAMSM_KERNELS)
         gan_launches, gan_runs = phase_gan_step()
         gan_launches16 = phase_gan_step_bf16(gan_runs)
         del gan_runs
-        phase_gan_bench()
-        phase_gan_bench_bf16()
+        style_lines = {"float32": phase_gan_bench(), "bfloat16": phase_gan_bench_bf16()}
         phase_gan_cli(os.path.join(out, "damsm", "Model"), out)
         tree = os.path.join(out, "birds")
         n_words = phase_cub_tree(tree)
@@ -1939,6 +2249,20 @@ def main() -> int:
         eval_launches = phase_eval_sampling(tree, net_g, net_e, n_words, out)
         gen_launches = phase_gen_example(tree, net_g, net_e, out)
         reproduce_launches = phase_reproduce(tree, net_g, net_e, out)
+        phase_bert_encoder()
+        bert_gan_launches, mixing_launches = phase_gan_step_bert()
+        bert_pretrain_launches = phase_pretrain_step_bert()
+        bert_bench_launches = phase_gan_bench_bert(style_lines)
+        bert_cli_pretrain_launches, bert_cli_gan_launches = phase_bert_cli(out)
+    bert_paths = {  # each kernel's launches on the BERT paths
+        k: {"bird_bert_gan_step": bert_gan_launches[k],
+            "bird_mixing_gan_step": mixing_launches[k],
+            "bert_pretrain_step": bert_pretrain_launches[k],
+            "bert_bench_step_float32": bert_bench_launches["float32"][k],
+            "bert_bench_step_bfloat16": bert_bench_launches["bfloat16"][k],
+            "bert_pretrain_cli_epoch": bert_cli_pretrain_launches[k],
+            "bert_gan_cli_calls": [c[k] for c in bert_cli_gan_launches]}
+        for k in GAN_KERNELS}
 
     # the kernels line: K4 at the largest serving shape of one request,
     # K1-K3 at the pretrain shape, with the GAN step's shapes beside; then
@@ -1967,6 +2291,7 @@ def main() -> int:
         "eval_launches": eval_launches,
         "gen_example_launches": gen_launches,
         "reproduce_launches": reproduce_launches,
+        "bert_paths": bert_paths["word_attention"],
     }]
     for kname, (source, replaces) in DAMSM_KERNELS.items():
         row, gan = damsm_rows["pretrain"][kname], damsm_rows["gan_step"][kname]
@@ -1983,6 +2308,7 @@ def main() -> int:
             "gan_step": {k: gan[k] for k in ("shape", "kernel_ms", "plain_ms",
                                              "bound_ms", "bound_by", "eager_ms",
                                              "bound_tc_ms")},
+            "bert_paths": bert_paths[kname],
         })
     row16, gan_rows16 = rows16
     kernels.append({

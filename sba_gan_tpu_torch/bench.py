@@ -39,7 +39,7 @@ import gc
 import json
 import statistics
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -112,6 +112,19 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def device_events(events) -> Tuple[list, list]:
+    """The device-side entries of a profile's ``key_averages()``: (kernels
+    and copies, user-annotation ranges).  The ranges (``record_function``;
+    each optimizer's ``Optimizer.step#Adam.step``) lie on the device's
+    timeline over the kernels they enclose, so device time and launches sum
+    the first list only."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
+    ranges = [e for e in device if getattr(e, "is_user_annotation", False)]
+    return [e for e in device if e not in ranges], ranges
+
+
 KERNEL_NAMES = {"word_attention": "word_attention_fwd_kernel",
                 "damsm_sim_fwd": "damsm_sim_fwd_kernel",
                 "damsm_sim_dimg": "damsm_sim_dimg_kernel",
@@ -121,7 +134,6 @@ KERNEL_NAMES = {"word_attention": "word_attention_fwd_kernel",
 def profile_steps(step, args_, steps: int) -> Dict:
     """Device time, launches, idle share and the kernels by time over
     ``steps`` traced steps."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -130,8 +142,7 @@ def profile_steps(step, args_, steps: int) -> Dict:
             logs = step(*args_)
         float(logs["errG"])
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    kernels, ranges = device_events(prof.key_averages())
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
     named = {}
     for short, kname in KERNEL_NAMES.items():
@@ -143,6 +154,7 @@ def profile_steps(step, args_, steps: int) -> Dict:
         "traced_steps": steps,
         "wall_ms_per_step_traced": wall_ms / steps,
         "device_ms_per_step": device_ms / steps,
+        "annotated_ranges_ms_per_step": {e.key: _device_us(e) / 1e3 / steps for e in ranges},
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "launches_per_step": sum(e.count for e in kernels) / steps,
         "hand_written_kernels": named,

@@ -137,7 +137,7 @@ def default_config() -> ConfigDict:
                 "BERT_INTERMEDIATE": 3072,
             },
             "MODEL": {
-                "TEXT_ENCODER": "rnn",  # 'rnn' ('bert' is not ported yet)
+                "TEXT_ENCODER": "rnn",  # 'rnn' | 'bert' (bert-base, wordpieces)
                 "INCEPTION_INPUT": 299,
                 "IMAGE_LOADER": "pil",
             },

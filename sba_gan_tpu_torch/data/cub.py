@@ -10,8 +10,9 @@ Item ``index`` of epoch ``e`` draws every random number (crop, flip,
 caption, caption subsample, in that order) from
 ``numpy.random.default_rng([seed, e, index])``, so items are the same
 whatever the number of loader workers, and bit-identical to the JAX
-package's.  Its native JPEG loader and BERT vocabulary are not ported and
-raise.
+package's.  ``vocab='bert'`` reads the captions as BERT wordpieces
+(``captions_bert.pickle``, :func:`data.vocab.load_or_build_captions_bert`).
+Its native JPEG loader is not ported and raises.
 
 :class:`SyntheticDataset` is the port's copy of the JAX package's
 ``SyntheticDataset``: item ``index`` is drawn from
@@ -29,7 +30,11 @@ import numpy as np
 from PIL import Image
 
 from sba_gan_tpu_torch.data import transforms as T
-from sba_gan_tpu_torch.data.vocab import load_or_build_captions, pad_caption
+from sba_gan_tpu_torch.data.vocab import (
+    load_or_build_captions,
+    load_or_build_captions_bert,
+    pad_caption,
+)
 
 
 def load_filenames(data_dir: str, split: str) -> List[str]:
@@ -86,10 +91,8 @@ class TextImageDataset:
         vocab: str = "word",
         loader: str = "pil",
     ):
-        if vocab != "word":
-            raise NotImplementedError(
-                f"vocab={vocab!r}: the BERT wordpiece vocabulary is not ported "
-                "(ROADMAP.md, queue 1, item 3); use the word-id vocabulary")
+        if vocab not in ("word", "bert"):
+            raise ValueError(f"vocab must be 'word' or 'bert', got {vocab!r}")
         if loader != "pil":
             raise NotImplementedError(
                 f"loader={loader!r} (MODEL.IMAGE_LOADER): the native JPEG loader "
@@ -108,7 +111,8 @@ class TextImageDataset:
         self.bbox = load_bboxes(data_dir) if "birds" in data_dir else None
         train_names = load_filenames(data_dir, "train")
         test_names = load_filenames(data_dir, "test")
-        train_caps, test_caps, self.ixtoword, self.wordtoix = load_or_build_captions(
+        load = load_or_build_captions_bert if vocab == "bert" else load_or_build_captions
+        train_caps, test_caps, self.ixtoword, self.wordtoix = load(
             data_dir, train_names, test_names, captions_per_image)
         self.n_words = len(self.ixtoword)
         if split == "train":

@@ -13,14 +13,24 @@ pretraining (:mod:`sba_gan_tpu_torch.pretrain`: an ``epoch_N.pt`` file or its
 ``Model`` directory, whose latest checkpoint is taken), or a reference
 ``text_encoder*.pth``, whose image encoder is the file of the same name with
 ``text_encoder`` replaced by ``image_encoder``, if it exists; the two are
-told apart by what the file holds.  ``TRAIN.NET_G`` names a reference
-``netG*.pth`` (EMA weights).  Empty: random weights.  deviation: a named
-path that does not exist raises (the JAX package skips it).
+told apart by what the file holds.  A reference BERT text encoder is not
+imported: its load raises (ROADMAP.md, section 3).  Under
+``MODEL.TEXT_ENCODER: bert`` ``TRAIN.NET_E`` names the port's own BERT
+pretrain checkpoint.
+``TRAIN.NET_G`` names a reference ``netG*.pth`` (EMA weights).  Empty:
+random weights.  deviation: a named path that does not exist raises (the
+JAX package skips it).
+
+``MODEL.TEXT_ENCODER`` picks the vocabulary: the data set's word ids for
+``rnn``, BERT's wordpieces (``data/vocab.py``) for ``bert``, in the caption
+cache and in ``gen_example``'s captions.
 
 Usage (on the card; ``--device cpu`` runs on the CPU):
 
     python -m sba_gan_tpu_torch.main \\
         --cfg sba_gan_tpu_torch/configs/bird_style.yml --synthetic --max_epoch 1
+    python -m sba_gan_tpu_torch.main \\
+        --cfg sba_gan_tpu_torch/configs/bird_bert.yml --synthetic --max_epoch 1
     python -m sba_gan_tpu_torch.main \\
         --cfg sba_gan_tpu_torch/configs/eval_bird.yml --data_dir data/birds
 """
@@ -71,8 +81,8 @@ def load_net_e(path: str) -> Tuple[Optional[Dict], Optional[Dict], Optional[str]
         state = torch.load(path, map_location="cpu", weights_only=True)
     if "text_encoder" in state and "image_encoder" in state:
         return state["text_encoder"], state["image_encoder"], None
-    if "encoder.weight" in state:
-        return None, None, path
+    if "encoder.weight" in state or any(k.startswith("bert.") for k in state):
+        return None, None, path  # read, or refused, by torch_port.load_rnn_encoder
     raise ValueError(f"TRAIN.NET_E {path} is neither a pretrain checkpoint of the port "
                      "nor a reference text encoder state dict")
 
@@ -80,8 +90,10 @@ def load_net_e(path: str) -> Tuple[Optional[Dict], Optional[Dict], Optional[str]
 def load_example_captions(cfg, wordtoix) -> Dict[str, Tuple[np.ndarray, np.ndarray, None]]:
     """``{name: (ids (N, WORDS_NUM), lengths (N,), None)}`` for each file
     ``{DATA_DIR}/{name}.txt`` listed in ``{DATA_DIR}/example_filenames.txt``,
-    one caption a line; the key is the name after its last ``/``."""
-    from sba_gan_tpu_torch.data.vocab import encode_free_text
+    one caption a line; the key is the name after its last ``/``.  Under
+    ``MODEL.TEXT_ENCODER: bert`` the captions are BERT wordpieces with
+    ``[CLS]`` and ``[SEP]``, else the data set's word ids."""
+    from sba_gan_tpu_torch.data.vocab import bert_vocab_encode, encode_free_text
 
     data_dic = {}
     with open(os.path.join(cfg.DATA_DIR, "example_filenames.txt"), "r") as f:
@@ -89,7 +101,10 @@ def load_example_captions(cfg, wordtoix) -> Dict[str, Tuple[np.ndarray, np.ndarr
     for name in filenames:
         with open(os.path.join(cfg.DATA_DIR, name + ".txt"), "r") as f:
             sentences = [s for s in f.read().split("\n") if s.strip()]
-        ids, lens = encode_free_text(sentences, wordtoix, cfg.TEXT.WORDS_NUM)
+        if cfg.MODEL.TEXT_ENCODER == "bert":
+            ids, lens = bert_vocab_encode(sentences, cfg.TEXT.WORDS_NUM)
+        else:
+            ids, lens = encode_free_text(sentences, wordtoix, cfg.TEXT.WORDS_NUM)
         data_dic[name[name.rfind("/") + 1:]] = (ids, lens, None)
     return data_dic
 

@@ -274,11 +274,22 @@ def make_wsgi_app(service: GanService):
     return app
 
 
+def require_word_vocabulary(cfg) -> None:
+    """The service encodes captions with the word-id vocabulary, as the JAX
+    package's does; ``MODEL.TEXT_ENCODER: bert`` raises."""
+    if cfg.MODEL.TEXT_ENCODER != "rnn":
+        raise NotImplementedError(
+            f"MODEL.TEXT_ENCODER={cfg.MODEL.TEXT_ENCODER!r}: serving encodes captions "
+            "with the word-id vocabulary only (ROADMAP.md, section 3)")
+
+
 def build_service(cfg, sampler, wordtoix: Dict[str, int],
                   ixtoword: Dict[int, str], store_root: str,
                   telemetry: Optional[Callable] = None) -> GanService:
     """A GanService over ``sampler`` (a :class:`Sampler`): the service
-    launches on the device and fences with its own ``.cpu()`` copy."""
+    launches on the device and fences with its own ``.cpu()`` copy.  The
+    word-id vocabulary only (:func:`require_word_vocabulary`)."""
+    require_word_vocabulary(cfg)
     return GanService(sampler.launch, wordtoix, ixtoword, cfg.TEXT.WORDS_NUM,
                       LocalDiskStore(store_root), telemetry=telemetry)
 

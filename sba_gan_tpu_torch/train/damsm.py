@@ -7,10 +7,15 @@ jointly on the words and sentence losses (the JAX package's
 * the Inception trunk is frozen (``requires_grad=False``) but runs in train
   mode, so its BatchNorm running statistics still move; only
   ``emb_features`` and ``emb_cnn_code`` train on the image side
-  (Mixed_7a/b/c too for the BERT text encoder, which is not ported yet);
+  (Mixed_7a/b/c too under ``MODEL.TEXT_ENCODER: bert``);
 * Adam with betas (0.5, 0.999) and eps 1e-8 on both sides; the text side's
   gradients are clipped to global norm 0.25 first, with optax's formula
-  (``g * 0.25 / norm`` when ``norm >= 0.25``);
+  (``g * 0.25 / norm`` when ``norm >= 0.25``).  Every text parameter
+  trains, BERT's too, as in the JAX trainer (the reference freezes BERT's
+  embeddings and encoder layers: ``models.text_bert.bert_trainable_mask``,
+  which neither trainer applies);
+* the RNN encoder's embedding dropout draws its mask from the trainer's
+  generator; BERT has no dropout and gets neither;
 * each epoch re-creates both optimizers (moments reset) with the learning
   rate of :func:`epoch_lr` (x0.98 per epoch while above a tenth of the
   base), as the reference does.
@@ -31,8 +36,8 @@ from sba_gan_tpu_torch.config import compute_dtype, loss_dtype
 from sba_gan_tpu_torch.losses.damsm import sent_loss, words_loss
 from sba_gan_tpu_torch.models.inception import CNNEncoder, HEADS
 from sba_gan_tpu_torch.models.inception import init_weights as init_image_weights
-from sba_gan_tpu_torch.models.text_rnn import init_weights as init_text_weights
-from sba_gan_tpu_torch.train.sample import build_text_encoder
+from sba_gan_tpu_torch.models.text_rnn import RNNEncoder
+from sba_gan_tpu_torch.train.sample import build_text_encoder, init_text_weights
 from sba_gan_tpu_torch.utils.platform import resolve_device
 
 LOG_KEYS = ("w_loss0", "w_loss1", "s_loss0", "s_loss1", "total")
@@ -125,8 +130,11 @@ class DAMSMTrainer:
         g1, g2, g3 = self.gammas
         labels = torch.arange(captions.shape[0], device=self.device)
         region, code = self.image_encoder(img)
-        words_emb, sent_emb = self.text_encoder(
-            captions, cap_lens, keep_mask=keep_mask, generator=self.dropout_gen)
+        if isinstance(self.text_encoder, RNNEncoder):
+            words_emb, sent_emb = self.text_encoder(
+                captions, cap_lens, keep_mask=keep_mask, generator=self.dropout_gen)
+        else:
+            words_emb, sent_emb = self.text_encoder(captions, cap_lens)
         w0, w1 = words_loss(region, words_emb, labels, cap_lens, class_ids, g1, g2, g3,
                             self.mm_dtype)
         s0, s1 = sent_loss(code, sent_emb, labels, class_ids, g3)
@@ -137,8 +145,9 @@ class DAMSMTrainer:
                    keep_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One update on a batch: img (B, S, S, 3), captions (B, T), cap_lens
         (B,) (any device), class_ids (B,) or None.  ``keep_mask`` (B, T, 300)
-        fixes the embedding dropout; by default it comes from the trainer's
-        generator.  Returns the log values as 0-d tensors on the device."""
+        fixes the RNN encoder's embedding dropout; by default it comes from
+        the trainer's generator.  Returns the log values as 0-d tensors on
+        the device."""
         self.text_encoder.train()
         self.image_encoder.train()
         self.text_opt.zero_grad(set_to_none=True)

@@ -3,7 +3,8 @@ package's ``train/gan.py``).
 
 One step, in the JAX step's order:
 
-1. the frozen text encoder (eval mode, no gradient) encodes the captions;
+1. the frozen text encoder (eval mode, no gradient; the bi-LSTM, or
+   bert-base under ``MODEL.TEXT_ENCODER: bert``) encodes the captions;
    ``pad_mask = captions == 0``;
 2. G runs forward once, in train mode (its BatchNorm running statistics
    move), with noise ``z`` (B, Z) or (2, B, Z) under ``TRAIN.MIXING`` and
@@ -48,8 +49,7 @@ from sba_gan_tpu_torch.models.generator import GNet, build_generator
 from sba_gan_tpu_torch.models.inception import CNNEncoder
 from sba_gan_tpu_torch.models.inception import init_weights as init_image_weights
 from sba_gan_tpu_torch.models.norms import frozen_running_stats
-from sba_gan_tpu_torch.models.text_rnn import init_weights as init_text_weights
-from sba_gan_tpu_torch.train.sample import build_text_encoder, noise_shape
+from sba_gan_tpu_torch.train.sample import build_text_encoder, init_text_weights, noise_shape
 from sba_gan_tpu_torch.utils.platform import resolve_device
 
 EMA_DECAY = 0.999

@@ -12,12 +12,14 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from sba_gan_tpu_torch.config import compute_dtype
+from sba_gan_tpu_torch.models import text_bert
 from sba_gan_tpu_torch.models.blocks import init_weights
 from sba_gan_tpu_torch.models.generator import GNet, build_generator
 from sba_gan_tpu_torch.models.text_rnn import RNNEncoder
-from sba_gan_tpu_torch.models.text_rnn import init_weights as init_text_weights
+from sba_gan_tpu_torch.models.text_rnn import init_weights as init_rnn_weights
 from sba_gan_tpu_torch.utils import weights as W
 from sba_gan_tpu_torch.utils.platform import resolve_device
 
@@ -28,13 +30,25 @@ def noise_shape(cfg, batch: int) -> Tuple[int, ...]:
     return (batch, cfg.GAN.Z_DIM)
 
 
-def build_text_encoder(cfg, n_words: int) -> RNNEncoder:
+def build_text_encoder(cfg, n_words: int) -> nn.Module:
+    """``MODEL.TEXT_ENCODER``'s encoder: the bi-LSTM over the data set's
+    ``n_words``, or bert-base (its own wordpiece vocabulary) for ``bert``,
+    as the JAX package builds them, computing in ``JAX.DTYPE``."""
+    if cfg.MODEL.TEXT_ENCODER == "bert":
+        return text_bert.BertEncoder(nef=cfg.TEXT.EMBEDDING_DIM, dtype=compute_dtype(cfg))
     if cfg.MODEL.TEXT_ENCODER != "rnn":
-        raise NotImplementedError(
-            f"MODEL.TEXT_ENCODER={cfg.MODEL.TEXT_ENCODER!r} is not ported yet "
-            "(ROADMAP.md, queue 1, item 3)")
+        raise ValueError(f"MODEL.TEXT_ENCODER must be 'rnn' or 'bert', got "
+                         f"{cfg.MODEL.TEXT_ENCODER!r}")
     return RNNEncoder(ntoken=n_words, nhidden=cfg.TEXT.EMBEDDING_DIM,
                       rnn_type=cfg.RNN_TYPE, dtype=compute_dtype(cfg))
+
+
+def init_text_weights(encoder: nn.Module, generator: torch.Generator) -> None:
+    """Random weights of either text encoder, drawn from ``generator``."""
+    if isinstance(encoder, text_bert.BertEncoder):
+        text_bert.init_weights(encoder, generator)
+    else:
+        init_rnn_weights(encoder, generator)
 
 
 class Sampler:
@@ -44,7 +58,7 @@ class Sampler:
     (B, H_j, W_j, T).  ``launch`` returns the same as tensors on the device,
     without waiting for them."""
 
-    def __init__(self, cfg, generator: GNet, text_encoder: RNNEncoder,
+    def __init__(self, cfg, generator: GNet, text_encoder: nn.Module,
                  device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -67,7 +81,7 @@ class Sampler:
         else:
             g_params, g_stats, text_params = W.read_npz(weights)
             generator.load_state_dict(W.g_net_state_dict(g_params, g_stats))
-            text_encoder.load_state_dict(W.rnn_encoder_state_dict(text_params))
+            text_encoder.load_state_dict(W.text_encoder_state_dict(text_params))
         return cls(cfg, generator, text_encoder, device=dev)
 
     def draw_noise(self, batch: int, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -12,6 +12,12 @@ classifier ``AuxLogits`` are skipped; every other key must match both
 ways, and every shape.  A text encoder of another vocabulary raises, naming
 both sizes; it is never cut or padded.
 
+:func:`load_bert` takes HuggingFace's ``bert-base-uncased`` state dict (the
+JAX package's ``port_bert``) into the transformer of the port's
+:class:`BertEncoder`.  A reference ``bird_bert`` text encoder file (its
+``BertEncoder`` of ``model_bert.py``) is not read: neither package has its
+import, and :func:`load_rnn_encoder` refuses it.
+
 Files are read with ``torch.load(..., weights_only=True)`` on the CPU.
 """
 
@@ -59,6 +65,14 @@ def load_rnn_encoder(encoder: nn.Module, path: str) -> None:
     """A reference ``text_encoder*.pth`` into the port's RNNEncoder, whose
     embedding has the dataset's vocabulary size."""
     sd = load_state_dict_file(path)
+    if any(k.startswith("bert.") for k in sd):
+        raise NotImplementedError(
+            f"text encoder {path}: a reference BERT text encoder is not imported "
+            "(ROADMAP.md, section 3); train one with the port's pretrain.py and "
+            "name its checkpoint in TRAIN.NET_E")
+    if not hasattr(encoder, "rnn"):
+        raise ValueError(f"text encoder {path} is a reference RNN text encoder; the "
+                         "model's text encoder is BERT (MODEL.TEXT_ENCODER: bert)")
     got, want = sd["encoder.weight"].shape[0], encoder.encoder.weight.shape[0]
     if got != want:
         raise ValueError(f"text encoder {path} has a vocabulary of {got} words; the "
@@ -77,3 +91,23 @@ def image_encoder_path(text_encoder_path: str) -> Optional[str]:
     ``text_encoder`` replaced by ``image_encoder``, if that file exists."""
     path = text_encoder_path.replace("text_encoder", "image_encoder")
     return path if path != text_encoder_path and os.path.isfile(path) else None
+
+
+_HF_BUFFERS = ("position_ids", "token_type_ids")  # non-parameter buffers of some versions
+_HF_OLD_LEAF = {"gamma": "weight", "beta": "bias"}  # LayerNorm names of old checkpoints
+
+
+def load_bert(encoder: nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
+    """A HuggingFace ``BertModel`` / ``BertForPreTraining`` state dict, keys with
+    or without ``bert.``, into ``encoder.bert`` (a :class:`BertEncoder`): the
+    ``cls.*`` heads and the position/token-type id buffers are dropped, the
+    projection heads ``emb_words`` / ``emb_sent`` keep their weights.
+    Strict otherwise: a key that differs raises ``KeyError``."""
+    sd = {}
+    for key, v in state_dict.items():
+        k = key[len("bert."):] if key.startswith("bert.") else key
+        if k.startswith("cls.") or k.rsplit(".", 1)[-1] in _HF_BUFFERS:
+            continue
+        head, leaf = k.rsplit(".", 1)
+        sd[f"{head}.{_HF_OLD_LEAF.get(leaf, leaf)}"] = v
+    load_reference(encoder.bert, sd, "BERT state dict")

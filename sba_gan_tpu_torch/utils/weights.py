@@ -3,16 +3,20 @@
 The JAX package keeps its variables as nested dicts in Flax tree layout
 (``CANet_0/Dense_0/kernel`` ...).  These functions turn them, as numpy
 arrays, into ``state_dict``s of the port's :class:`GNet`, ``DNet64/128/256``,
-:class:`RNNEncoder` and :class:`CNNEncoder`, whose module names are the
-reference G_NET / D_NET / RNN_ENCODER / torchvision Inception-v3 state-dict
-keys.  Apart from the discriminators, which the JAX package has no reader
-for, the map is the inverse of the reference-key to Flax-path map that the
-JAX package uses to read reference checkpoints:
+:class:`RNNEncoder`, :class:`BertEncoder` and :class:`CNNEncoder`, whose
+module names are the reference G_NET / D_NET / RNN_ENCODER / torchvision
+Inception-v3 / HuggingFace ``BertModel`` state-dict keys.  Apart from the
+discriminators, which the JAX package has no reader for, the map is the
+inverse of the reference-key to Flax-path map that the JAX package uses to
+read reference checkpoints:
 
 * conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
 * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
 * ``WordAttention_0/Dense_0/kernel`` -> the word projection ``att.conv_context``;
-* the RNN gates copy through unchanged (both sides use torch's layout).
+* the RNN gates copy through unchanged (both sides use torch's layout);
+* BERT's ``layer_N/attention_self/query`` -> ``bert.encoder.layer.N.attention.
+  self.query`` and so on (the inverse of the JAX package's ``port_bert``),
+  LayerNorm scale/bias -> weight/bias, embedding tables as they are.
 
 A Flax path with no port key raises, and the module's strict
 ``load_state_dict`` raises on a port key that got no value.
@@ -159,6 +163,50 @@ def rnn_encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+_BERT_LAYER = {"attention_self": "attention.self", "attention_output": "attention.output.dense",
+               "attention_LayerNorm": "attention.output.LayerNorm",
+               "intermediate": "intermediate.dense", "output": "output.dense",
+               "output_LayerNorm": "output.LayerNorm"}
+_BERT_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight"}
+
+
+def bert_encoder_key(path: Tuple[str, ...]) -> str:
+    """Port key of one Flax BertEncoder path, e.g. ('bert', 'layer_0',
+    'attention_self', 'query', 'kernel') -> 'bert.encoder.layer.0.attention.
+    self.query.weight'.  Raises KeyError for a path it does not know."""
+    try:
+        leaf = _BERT_LEAF[path[-1]]
+        if path[0] in ("emb_words", "emb_sent") and len(path) == 2:
+            return f"{path[0]}.{leaf}"
+        if path[0] == "bert" and path[1] == "embeddings":
+            return f"bert.embeddings.{path[2]}.{leaf}"
+        if path[0] == "bert" and path[1] == "pooler" and len(path) == 3:
+            return f"bert.pooler.dense.{leaf}"
+        if path[0] == "bert" and path[1].startswith("layer_"):
+            inner = ".".join((_BERT_LAYER[path[2]], *path[3:-1]))
+            return f"bert.encoder.layer.{_index(path[1])}.{inner}.{leaf}"
+    except (KeyError, IndexError, ValueError):
+        pass
+    raise KeyError(f"no port key for Flax BertEncoder path {'/'.join(path)}")
+
+
+def bert_encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax BertEncoder ``params`` -> the port's BertEncoder state_dict
+    (Dense kernels transposed)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flatten_tree(params).items():
+        path = tuple(key.split("/"))
+        sd[bert_encoder_key(path)] = flax_leaf_to_torch(path, value)
+    return sd
+
+
+def text_encoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax text encoder ``params``, RNN or BERT (told apart by their
+    trees) -> the port's state_dict."""
+    return (bert_encoder_state_dict(params) if "bert" in params
+            else rnn_encoder_state_dict(params))
+
+
 def cnn_encoder_state_dict(params: Mapping, batch_stats: Mapping
                            ) -> Dict[str, torch.Tensor]:
     """Flax CNNEncoder (or InceptionV3Classifier) ``params`` +
@@ -241,15 +289,15 @@ def gan_state_from_jax(state: Mapping) -> Dict[str, Any]:
     and ``batch_stats``, ``g_ema``, ``ds`` a sequence of ``params`` +
     ``batch_stats``, ``text`` and ``image`` variables) -> the port's state
     dicts: ``generator``, ``g_ema`` (G's parameters only), ``discriminators``
-    (a list), ``text_encoder`` and ``image_encoder``.  Optimizer moments are
-    not carried."""
+    (a list), ``text_encoder`` (RNN or BERT) and ``image_encoder``.
+    Optimizer moments are not carried."""
     g_ema = g_net_state_dict(state["g_ema"], {})
     return {
         "generator": g_net_state_dict(state["g"]["params"], state["g"]["batch_stats"]),
         "g_ema": g_ema,
         "discriminators": [d_net_state_dict(d["params"], d["batch_stats"])
                            for d in state["ds"]],
-        "text_encoder": rnn_encoder_state_dict(state["text"]["params"]),
+        "text_encoder": text_encoder_state_dict(state["text"]["params"]),
         "image_encoder": cnn_encoder_state_dict(state["image"]["params"],
                                                 state["image"]["batch_stats"]),
     }

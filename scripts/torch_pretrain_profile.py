@@ -1,18 +1,23 @@
 """Where the card's time goes in one DAMSM pretraining step of the PyTorch port.
 
     python3 scripts/torch_pretrain_profile.py [--iters 50] [--batch 32] [--n_words 5450]
+        [--preset DAMSM/bird | DAMSM/bird_bert]
 
-Builds the full-width ``configs/DAMSM/bird.yml`` models of
-``sba_gan_tpu_torch`` (Inception-v3 at 299^2, EMBEDDING_DIM 256, WORDS_NUM
-20, vocabulary ``--n_words``: 5450 is CUB's, 300 the CLI's synthetic set's;
-random weights from seed 0) and one synthetic batch on the card, warms up,
+Builds the full-width models of the port's preset (``configs/DAMSM/bird.yml``
+by default: Inception-v3 at 299^2, EMBEDDING_DIM 256, WORDS_NUM 20, the
+bi-LSTM over a vocabulary of ``--n_words``: 5450 is CUB's, 300 the CLI's
+synthetic set's; ``DAMSM/bird_bert``: bert-base, captions of ids below
+``--n_words``, Mixed_7a/b/c trained; random weights from seed 0) and one
+synthetic batch on the card, warms up,
 times ``--iters`` train steps without the profiler (each ended by fetching
 its loss), then traces as many with ``torch.profiler``.  Prints one JSON
 line: wall ms per step untraced (mean, median, min, max and each step's)
 and traced, the summed device time of the kernels per step, the device's idle
 share over the traced window, kernel launches per step, the time of the
-three DAMSM-similarity kernels, and the kernels that took the most device
-time.  TF32 stays at PyTorch's defaults, as the CLI runs.  Needs a CUDA card.
+three DAMSM-similarity kernels, the kernels that took the most device
+time, the annotated ranges on the device's timeline (the optimizers' steps,
+which enclose kernels and are not summed), and the peak memory allocated on the card (models, optimizer state
+and the steps).  TF32 stays at PyTorch's defaults, as the CLI runs.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -44,21 +49,22 @@ def main() -> int:
     p.add_argument("--iters", type=int, default=50)
     p.add_argument("--n_words", type=int, default=N_WORDS)
     p.add_argument("--top", type=int, default=15)
+    p.add_argument("--preset", default="DAMSM/bird")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from sba_gan_tpu_torch.bench import device_events
     from sba_gan_tpu_torch.config import preset
     from sba_gan_tpu_torch.data.cub import SyntheticDataset
     from sba_gan_tpu_torch.data.pipeline import collate
     from sba_gan_tpu_torch.ops import damsm_sim as dsim
     from sba_gan_tpu_torch.train.damsm import DAMSMTrainer, build_damsm_models
 
-    cfg = preset("DAMSM/bird")
+    cfg = preset(args.preset)
     cfg.TRAIN.BATCH_SIZE = args.batch
     trainer = DAMSMTrainer(cfg, build_damsm_models(cfg, args.n_words, seed=0), device="cuda")
     ds = SyntheticDataset(num_examples=args.batch, base_size=cfg.TREE.BASE_SIZE,
@@ -88,9 +94,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # device-side events only (kernels and copies)
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    # device-side events only (kernels and copies), not the annotated ranges
+    kernels, ranges = device_events(prof.key_averages())
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels) / args.iters
     top = sorted(kernels, key=_device_us, reverse=True)[: args.top]
@@ -98,6 +103,7 @@ def main() -> int:
              if "damsm_" in e.key or "sum_splits" in e.key}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "preset": args.preset,
         "batch": args.batch,
         "n_words": args.n_words,
         "iters": args.iters,
@@ -108,10 +114,13 @@ def main() -> int:
         "wall_ms_untraced_steps": step_ms,
         "wall_ms_per_step_traced": wall_ms / args.iters,
         "device_ms_per_step": device_ms / args.iters,
+        "annotated_ranges_ms_per_step": {e.key: _device_us(e) / 1e3 / args.iters
+                                         for e in ranges},
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "device_launches_per_step": launches,
         "images_per_s_untraced": args.batch * 1e3 / untraced_ms,
         "images_per_s_untraced_median": args.batch * 1e3 / statistics.median(step_ms),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "damsm_kernels_ms_per_step": damsm,
         "damsm_launch_counts": {"fwd": dsim.damsm_sim_fwd.launches,
                                 "dimg": dsim.damsm_sim_dimg.launches,

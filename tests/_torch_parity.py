@@ -118,3 +118,26 @@ def cnn_encoder_key(path):
         return f"{path[0]}.{'weight' if path[1] == 'kernel' else 'bias'}"
     leaf = "weight" if path[-1] == "kernel" else _BN_KEYS[path[-1]]
     return ".".join(path[1:-1]) + "." + leaf
+
+
+def write_bert_hub(root, tokens):
+    """A HuggingFace hub cache under ``root`` whose ``bert-base-uncased``
+    snapshot holds a ``vocab.txt`` of ``tokens`` (ids in order), found
+    through ``refs/main``; returns ``root``."""
+    repo = root / "models--bert-base-uncased"
+    (repo / "snapshots" / "0123abc").mkdir(parents=True)
+    (repo / "refs").mkdir()
+    (repo / "refs" / "main").write_text("0123abc")
+    (repo / "snapshots" / "0123abc" / "vocab.txt").write_text("\n".join(tokens) + "\n")
+    return root
+
+
+def import_transformers():
+    """``transformers`` (skipping where it is absent), imported without its
+    TensorFlow import, which these tests do not use and which costs seconds;
+    the setting counts only where this is the process's first import."""
+    import pytest
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("USE_TF", "0")
+        return pytest.importorskip("transformers")

@@ -187,12 +187,18 @@ def test_worker_errors_reach_the_consumer_and_the_pool_stops():
     assert not any(t.is_alive() for t in left)
 
 
-def test_native_loader_and_bert_vocab_are_refused(mini_cub):
+def test_native_loader_and_bert_vocab_are_refused(mini_cub, tmp_path, monkeypatch):
+    """The native loader is not ported; the BERT vocabulary is refused
+    without its cached files (with them: tests/test_torch_bert_vocab.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TextImageDataset(mini_cub, loader="native", **KW)
+    cfg = cfg_from_dict({"DATA_DIR": mini_cub, "MODEL": {"IMAGE_LOADER": "native"}})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_dataset(cfg, False, "train")
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "no_hub"))
+    with pytest.raises(RuntimeError, match="tokenizer"):
         TextImageDataset(mini_cub, vocab="bert", **KW)
-    for key, value in (("IMAGE_LOADER", "native"), ("TEXT_ENCODER", "bert")):
-        cfg = cfg_from_dict({"DATA_DIR": mini_cub, "MODEL": {key: value}})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_dataset(cfg, False, "train")
+    cfg = cfg_from_dict({"DATA_DIR": mini_cub, "MODEL": {"TEXT_ENCODER": "bert"}})
+    with pytest.raises(RuntimeError, match="tokenizer"):
+        build_dataset(cfg, False, "train")
+    assert not os.path.exists(os.path.join(mini_cub, "captions_bert.pickle"))

@@ -37,10 +37,15 @@ def test_synthetic_set_and_loader_match_jax():
             np.testing.assert_array_equal(b.class_ids.numpy(), jb.class_ids)
 
 
-def test_only_the_synthetic_set_is_ported():
-    """Of the real-data readers, the native JPEG loader and the BERT
-    vocabulary are not ported and raise before reading anything (the CUB
-    reader itself: tests/test_torch_cub_data.py)."""
-    for model in ({"IMAGE_LOADER": "native"}, {"TEXT_ENCODER": "bert"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_dataset(cfg_from_dict({**TINY, "MODEL": model}), False, "train")
+def test_only_the_synthetic_set_is_ported(tmp_path, monkeypatch):
+    """Of the real-data readers, the native JPEG loader is not ported and
+    raises before reading anything, and the BERT vocabulary raises without
+    its cached files (the CUB reader itself: tests/test_torch_cub_data.py;
+    the BERT vocabulary: tests/test_torch_bert_vocab.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_dataset(cfg_from_dict({**TINY, "MODEL": {"IMAGE_LOADER": "native"}}),
+                      False, "train")
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "no_hub"))
+    with pytest.raises(RuntimeError, match="tokenizer"):
+        build_dataset(cfg_from_dict({**TINY, "DATA_DIR": str(tmp_path),
+                                     "MODEL": {"TEXT_ENCODER": "bert"}}), False, "train")

@@ -107,9 +107,12 @@ def test_restored_trainer_renders_ema_sample_and_attention(cli_run):
 
 def test_not_ported_modes_raise(tmp_path):
     """What the CLI still refuses, naming ROADMAP.md: gradient accumulation,
-    the native JPEG loader and the BERT text encoder."""
+    the native JPEG loader and a reference BERT text encoder as
+    ``TRAIN.NET_E``."""
+    ref = tmp_path / "text_encoder120.pth"
+    torch.save({"bert.embeddings.word_embeddings.weight": torch.zeros(3, 2)}, ref)
     for key, value in (("TRAIN", {"GRAD_ACCUM": 2}), ("MODEL", {"IMAGE_LOADER": "native"}),
-                       ("MODEL", {"TEXT_ENCODER": "bert"})):
+                       ("TRAIN", {"NET_E": str(ref)})):
         cfg = {**GAN_TINY, "DATA_DIR": str(tmp_path),
                key: {**GAN_TINY.get(key, {}), **value}}
         yml = tmp_path / "refused.yml"
@@ -131,3 +134,22 @@ def test_bench_cpu_smoke():
     assert line["ms_per_step"] == pytest.approx(line["window_s"] * 1e3 / bench.STEPS)
     assert line["flops_per_step"] > line["flop_counter_flops"] > 0
     assert not {"mfu", "profile", "peak_memory_bytes", "step_ms"} & set(line)
+
+
+def test_device_time_leaves_out_annotated_ranges():
+    """The profiler puts each optimizer's ``Optimizer.step#Adam.step`` range
+    on the device's timeline over the kernels it encloses; the bench and
+    the pretrain profile sum kernels only."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from sba_gan_tpu_torch.bench import device_events
+
+    kernel = SimpleNamespace(key="sm90_gemm", device_type=DeviceType.CUDA,
+                             is_user_annotation=False)
+    adam = SimpleNamespace(key="Optimizer.step#Adam.step", device_type=DeviceType.CUDA,
+                           is_user_annotation=True)
+    host = SimpleNamespace(key="aten::mm", device_type=DeviceType.CPU,
+                           is_user_annotation=False)
+    assert device_events([kernel, adam, host]) == ([kernel], [adam])

@@ -22,6 +22,9 @@ with ``mm_dtype`` bfloat16 within the bounds of ``chip_smoke.py``'s
 (rtol / atol 1e-3 on sim, 1e-2 times the largest entry on the
 gradients); each at least ten times closer
 to the plain bfloat16 result than that is to the plain float32 one.
+
+Beside the kernels, one check of the profiler on the card: the optimizer's
+annotated range is told apart from the kernels it encloses.
 """
 
 import pytest
@@ -358,3 +361,25 @@ def test_damsm_kernels_bf16_match_plain(cuda, kernel, b, t, r, d):
     if kernel == "dwords":
         pad = (torch.arange(t)[None, :] >= lens[:, None]).to(cuda)
         assert torch.all(got[pad] == 0)
+
+
+@pytest.mark.cuda
+def test_profiler_marks_the_adam_range_as_annotation(cuda):
+    """``bench.device_events`` on a real trace of one Adam step: the
+    profiler reports ``Optimizer.step#Adam.step`` on the device as a user
+    annotation, so it lands in the ranges and not among the kernels whose
+    device time and launches the bench and the pretrain profile sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sba_gan_tpu_torch.bench import device_events
+
+    net = torch.nn.Linear(64, 64).to(cuda)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+    net(torch.randn(32, 64, device=cuda)).square().sum().backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        opt.step()
+        torch.cuda.synchronize()
+    kernels, ranges = device_events(prof.key_averages())
+    assert "Optimizer.step#Adam.step" in {e.key for e in ranges}
+    assert kernels and not {e.key for e in kernels} & {e.key for e in ranges}
