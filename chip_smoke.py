@@ -105,9 +105,31 @@ and nothing of JAX.  Phases, each printing one line or more:
    bird_style lines; ``bert_cli``, steps 8 and 11 with the BERT presets
    (``pretrain.main``, then ``main.main`` with its checkpoint as
    TRAIN.NET_E: train, save, resume, render);
-18. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
-   K4's also in the evaluation phases, and each kernel's on the BERT paths
-   under ``bert_paths``), then the device JSON line last.
+18. data parallelism and gradient accumulation (``parallel/dist.py``,
+   ``TRAIN.GRAD_ACCUM``), after the BERT phases, each line with its
+   seconds: ``grad_accum``, two full-width micro-steps (bird_style, batch 8,
+   the Ds held still) on the card in 'window' and in 'dfresh' against the
+   CPU's float64 window, the gan_step bounds, G and its EMA still after
+   micro-step 1 and moved after 2, the Ds' Adam cadence, K4 2, K1 1, K2 1,
+   K3 0 a micro-step; ``dist_nccl1``, the flagship step (batch 128) for
+   three steps and one bfloat16 step as the one rank of a world over NCCL
+   against no group (bit-identical, or within DIST1_SPREAD of the card's
+   own run-to-run spread); ``dist_gloo2``, two ranks on the one card over
+   gloo (spawned processes, 4 rows each) against one process at 8: the GAN
+   step in the gan_step bounds, the DAMSM/bird pretrain step in
+   PRETRAIN_TOL, both ranks identical, each rank's launches (K4 2, K1 1,
+   K2 1 a GAN step; K1, K2, K3 1 a pretrain step); ``gan_bench_dist``,
+   ``bench.measure`` of the plain step at batch 64 beside step 10's at 128,
+   GRAD_ACCUM 2 at 64 in both modes and the world of one over NCCL at 128
+   (images/s, device ms, launches, collectives' device ms and host
+   microseconds a call, peak memory);
+   ``dist_cli``, ``torchrun --standalone --nproc_per_node 1`` of ``main``
+   (GRAD_ACCUM 3, batch 8, small widths: a save in the middle of a window,
+   a resume that finishes it) and of ``pretrain`` (one epoch);
+19. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
+   K4's also in the evaluation phases, each kernel's on the BERT paths
+   under ``bert_paths`` and on the data-parallel paths under
+   ``dist_paths``), then the device JSON line last.
 
 Under ``JAX.DTYPE`` and ``LOSS_DTYPE`` bfloat16 (the JAX package's
 accelerator setting), beside the float32 phases: each kernel's bfloat16
@@ -132,6 +154,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import io
 import json
 import os
@@ -2200,6 +2223,617 @@ def phase_bert_cli(out, batch_size=32):
     return pretrain_launches, [c["launches"] for c in calls]
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism and gradient accumulation (parallel/dist.py,
+# TRAIN.GRAD_ACCUM): two micro-steps against the CPU's float64 steps, a
+# world of one rank over NCCL against no group, two ranks on the one card
+# over gloo against one process, the bench lines, and the torchrun CLIs
+# ---------------------------------------------------------------------------
+PRETRAIN_DIST_BATCH = 8
+ACCUM_MODES = ("window", "dfresh")
+# the EMA against the CPU's float64 one: past its bound (1e-3 of the
+# parameters' gap and two float32 roundings) by no more than the float64
+# rounding of that bound (measured 4.4e-15 on the H100)
+ACCUM_EMA_EXCESS = 1e-12
+# a world of one over NCCL against no group: bit-identical unless the card's
+# own run-to-run spread (the CONTROL run, no group again) is not 0; then
+# within DIST1_SPREAD times that spread
+DIST1_SPREAD = 10.0
+
+
+@contextlib.contextmanager
+def world_of(rank: int, world: int, port: int):
+    """The environment ``torchrun`` gives a rank, then as before."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def nccl_world_of_one(cfg):
+    """This process as the one rank of a world over NCCL, then no group."""
+    from sba_gan_tpu_torch.parallel import dist
+
+    with world_of(0, 1, free_port()), dist.distributed(cfg, "cuda") as device:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("the world of one is not on NCCL")
+        yield device
+
+
+def _opt_steps(opt) -> int:
+    """The Adam step count of an optimizer (0 before its first step)."""
+    states = list(opt.state.values())
+    return int(states[0]["step"]) if states else 0
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` on the CPU (``cpu()`` of a CPU tensor is the tensor)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def accum_run(cfg, models, batch, noises, device, dtype=torch.float32):
+    """Micro-steps from a copy of ``models`` on ``device`` in ``dtype``, one a
+    noise of ``noises``: after each, its logs, gradients, parameters and
+    running statistics, EMA, Adam step counts, micro-step count and launch
+    counts (set to 0 just before the micro-step); all on the CPU."""
+    from sba_gan_tpu_torch.train.gan import GANStep, init_gan_state
+
+    wrappers = _kernel_wrappers()
+    models = copy.deepcopy(models)
+    for m in (models.text_encoder, models.image_encoder, models.generator,
+              *models.discriminators):
+        m.to(dtype)
+    state = init_gan_state(cfg, models, device=device)
+    step = GANStep(cfg, state)
+    args = ([i.to(device, dtype) for i in batch.imgs], batch.captions.to(device),
+            batch.cap_lens, batch.class_ids.to(device))
+    start = {f"G.{n}": p.detach().cpu().clone() for n, p in state.generator.named_parameters()}
+    out = []
+    for z, eps in noises:
+        reset_launches(wrappers)
+        logs = {k: float(v) for k, v in
+                step(*args, z=z.to(device, dtype), eps=eps.to(device, dtype)).items()}
+        nets = {"G": state.generator,
+                **{f"D{i}": d for i, d in enumerate(state.discriminators)}}
+        sd = state.state_dict()
+        tensors = {f"G.{n}": _host(v) for n, v in sd["generator"].items()}
+        tensors.update({f"D{i}.{n}": _host(v) for i, d in enumerate(sd["discriminators"])
+                        for n, v in d.items()})
+        out.append(dict(
+            logs=logs, launches=read_launches(wrappers), tensors=tensors,
+            grads={f"{k}.{n}": _host(p.grad).double() for k, m in nets.items()
+                   for n, p in m.named_parameters()},
+            ema={n: _host(v) for n, v in sd["g_ema"].items()},
+            opt_steps={"G": _opt_steps(state.g_opt),
+                       **{f"D{i}": _opt_steps(o) for i, o in enumerate(state.d_opts)}},
+            micro=state.micro))
+    return start, out
+
+
+def _micro_grads(run, dfresh_from=None):
+    """``run``'s gradients; with ``dfresh_from`` (the window's first
+    micro-step) the Ds' second micro-gradient, 2 mean - first, in place of
+    the window's mean (what a 'dfresh' D holds after micro-step 2)."""
+    if dfresh_from is None:
+        return run
+    grads = {n: (2 * g - dfresh_from["grads"][n] if n.startswith("D") else g)
+             for n, g in run["grads"].items()}
+    return {**run, "grads": grads}
+
+
+def accum_inputs(batch_size=8):
+    """The grad_accum phase's config (bird_style at WORDS_NUM 18, the Ds held
+    still, GRAD_ACCUM 2), models, batch and the noise of two micro-steps."""
+    cfg, models, batch, z, eps = gan_step_inputs(SEED, batch_size)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    noises = [(z, eps), (torch.randn(z.shape, generator=gen),
+                         torch.randn(eps.shape, generator=gen))]
+    still = still_ds(cfg)
+    still.TRAIN.GRAD_ACCUM = 2
+    return still, models, batch, noises
+
+
+def accum_cpu_window(inputs):
+    """The CPU's float64 window of :func:`accum_inputs` ('window'; with the
+    Ds still, 'dfresh' computes the same numbers), TF32 off."""
+    cfg, models, batch, noises = inputs
+    return accum_run(cfg, models, batch, noises, "cpu", torch.float64)[1]
+
+
+def phase_grad_accum(inputs, cpu):
+    """GRAD_ACCUM 2 at full width (bird_style, WORDS_NUM 18, batch 8): two
+    micro-steps on the card (TF32 off) in 'window' and in 'dfresh' against
+    the CPU's float64 window ``cpu`` (:func:`accum_cpu_window`), all with
+    the Ds held still (D lr 0, as the gan_step phase holds G's gradients),
+    so both modes compute the same numbers and differ in the Ds' Adam
+    cadence alone; the gan_step phase's bounds.  G, its EMA and its Adam
+    hold still after micro-step 1 and move after 2 (G's parameters against
+    Adam's first update of the window's mean); the Ds' Adam steps once a
+    window ('window') or each micro-step ('dfresh'); K4 2, K1 1, K2 1, K3 0
+    launches a micro-step."""
+    t0 = time.perf_counter()
+    still, models, batch, noises = inputs
+    batch_size = batch.captions.shape[0]
+    lr = still.TRAIN.GENERATOR_LR
+    with tf32(cudnn=False, matmul=False):
+        runs = {}
+        for mode in ACCUM_MODES:
+            c = copy.deepcopy(still)
+            c.TRAIN.GRAD_ACCUM_MODE = mode
+            runs[mode] = accum_run(c, models, batch, noises, "cuda")
+    n_ds = still.TREE.BRANCH_NUM
+    readings, launches, failures = {}, {}, []
+    for mode, (start, card) in runs.items():
+        keys = card[0]["logs"].keys()
+        stats = [n for n in cpu[0]["tensors"] if n.endswith(("running_mean", "running_var"))]
+        want2 = _micro_grads(cpu[1], cpu[0] if mode == "dfresh" else None)
+        r = {"logs": max(abs(c["logs"][k] - w["logs"][k]) / abs(w["logs"][k])
+                         for c, w in zip(card, cpu) for k in keys),
+             "stats": max(_rel_err(c["tensors"][n], w["tensors"][n])
+                          for c, w in zip(card, cpu) for n in stats)}
+        g1, g2 = grad_errs(card[0], cpu[0]), grad_errs(card[1], want2)
+        r.update(d_grads=max(g1["d_grads"], g2["d_grads"]),
+                 g_grads=max(g1["g_grads"], g2["g_grads"]), worst_grads=g2["worst"])
+        r.update(param_readings((card[1], want2), (card[1], want2), lr))
+        g_still = all(torch.equal(card[0]["tensors"][n], v) for n, v in start.items())
+        ema_still = all(torch.equal(card[0]["ema"][n], start[f"G.{n}"])
+                        for n in card[0]["ema"])
+        g_moved = any(not torch.equal(card[1]["tensors"][n], v) for n, v in start.items())
+        d_steps = [1, 2] if mode == "dfresh" else [0, 1]
+        cadence = [c["opt_steps"] for c in card] == [
+            {"G": 0, **{f"D{i}": d_steps[0] for i in range(n_ds)}},
+            {"G": 1, **{f"D{i}": d_steps[1] for i in range(n_ds)}}]
+        r.update(g_and_ema_still_after_1=g_still and ema_still, g_moved_after_2=g_moved,
+                 adam_cadence=[c["opt_steps"] for c in card],
+                 micro=[c["micro"] for c in card])
+        readings[mode] = r
+        launches[mode] = [c["launches"] for c in card]
+        bad = [k for k in ("logs", "stats", "d_grads", "g_grads", "params_agreeing_excess",
+                           "params_adam_excess") if not r[k] <= GAN_STEP_TOL[k]]
+        if not r["ema_excess"] <= ACCUM_EMA_EXCESS:
+            bad.append("ema_excess")
+        if not r["params_sign_share"] > GAN_SIGN_SHARE:
+            bad.append("params_sign_share")
+        if not (g_still and ema_still and g_moved and cadence
+                and r["micro"] == [1, 0]):
+            bad.append("window cadence")
+        if launches[mode] != [GAN_STEP_LAUNCHES] * 2:
+            bad.append(f"launches {launches[mode]}")
+        failures += [f"{mode}: {b}" for b in bad]
+    say("grad_accum", batch=batch_size, grad_accum=2, logs_card={
+        m: [c["logs"] for c in runs[m][1]] for m in ACCUM_MODES},
+        logs_cpu64=[c["logs"] for c in cpu], readings=readings, launches=launches,
+        tol={**GAN_STEP_TOL, "ema_excess": ACCUM_EMA_EXCESS,
+             "params_sign_share_above": GAN_SIGN_SHARE},
+        seconds=time.perf_counter() - t0)
+    if failures:
+        raise AssertionError(f"grad_accum: {failures}")
+    return launches
+
+
+def _tensors_of(state) -> dict:
+    """G's and the Ds' parameters and statistics and the EMA, on the CPU."""
+    sd = state.state_dict()
+    out = {f"G.{n}": v.cpu() for n, v in sd["generator"].items()}
+    out.update({f"D{i}.{n}": v.cpu() for i, d in enumerate(sd["discriminators"])
+                for n, v in d.items()})
+    out.update({f"ema.{n}": v.cpu() for n, v in sd["g_ema"].items()})
+    return out
+
+
+def _largest_gap(a: dict, b: dict) -> dict:
+    """The largest |a - b| over the logs of each step and over the tensors."""
+    logs = max(abs(x[k] - y[k]) for x, y in zip(a["logs"], b["logs"]) for k in x)
+    tensors = max(float((a["tensors"][n].double() - t.double()).abs().max())
+                  for n, t in b["tensors"].items() if t.is_floating_point())
+    return {"logs": logs, "tensors": tensors}
+
+
+def phase_dist_nccl1(steps=3, batch=128):
+    """The flagship step (bench dims, batch 128, PyTorch's TF32 defaults,
+    cudnn deterministic) for ``steps`` steps from one state: with no group
+    (A), as the one rank of a world over NCCL (B), and with no group again
+    (C, the card's own run-to-run spread); then one bfloat16 step the same
+    three ways.  B must equal A bit for bit when C does, else lie within
+    DIST1_SPREAD times C's distance; K4 2, K1 1, K2 1 launches a step."""
+    from sba_gan_tpu_torch import bench
+    from sba_gan_tpu_torch.config import cfg_from_dict
+    from sba_gan_tpu_torch.train.gan import GANStep, build_models, init_gan_state
+
+    t0 = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    out, failures = {}, []
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype, n in (("float32", steps), ("bfloat16", 1)):
+            cfg = cfg_from_dict(copy.deepcopy(bench.FLAGSHIP))
+            cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = dtype
+            models = build_models(cfg, N_WORDS, seed=SEED)
+            args = bench.make_batch(cfg, batch, torch.device("cuda"), SEED)
+
+            def run(world):
+                with (nccl_world_of_one(cfg) if world else contextlib.nullcontext()):
+                    state = init_gan_state(cfg, copy.deepcopy(models), "cuda")
+                    step = GANStep(cfg, state, seed=SEED)
+                    reset_launches(wrappers)
+                    logs = [{k: float(v) for k, v in step(*args).items()} for _ in range(n)]
+                    launches = read_launches(wrappers, bf16=dtype == "bfloat16")
+                    result = dict(logs=logs, tensors=_tensors_of(state), launches=launches)
+                del state, step
+                torch.cuda.empty_cache()
+                return result
+            a, b, c = run(False), run(True), run(False)
+            gap_b, gap_c = _largest_gap(b, a), _largest_gap(c, a)
+            if all(v == 0 for v in gap_c.values()):
+                ok = all(v == 0 for v in gap_b.values())
+            else:
+                ok = all(gap_b[k] <= DIST1_SPREAD * gap_c[k] for k in gap_b)
+            want = {k: v * n for k, v in GAN_STEP_LAUNCHES.items()}
+            if not ok:
+                failures.append(f"{dtype}: NCCL {gap_b} against no group, control {gap_c}")
+            if not (a["launches"] == b["launches"] == want):
+                failures.append(f"{dtype}: launches {a['launches']} / {b['launches']}")
+            if not all(np.isfinite(v) for x in b["logs"] for v in x.values()):
+                failures.append(f"{dtype}: logs not finite")
+            out[dtype] = dict(steps=n, logs_nccl=b["logs"], logs_no_group=a["logs"],
+                              gap_nccl_vs_no_group=gap_b, gap_control=gap_c,
+                              bit_identical=all(v == 0 for v in gap_b.values()),
+                              launches_nccl=b["launches"])
+            del models, args, a, b, c
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    say("dist_nccl1", batch=batch, runs=out, spread_factor=DIST1_SPREAD,
+        seconds=time.perf_counter() - t0)
+    if failures:
+        raise AssertionError(f"dist_nccl1: {failures}")
+    return {dtype: r["launches_nccl"] for dtype, r in out.items()}
+
+
+def dist_cases(device, batch_size=8, gan_cfg=None, pretrain_cfg=None):
+    """This rank's part of one GAN step (bird_style at WORDS_NUM 18, still
+    Ds, the global noise injected) and one DAMSM/bird pretrain step (the
+    global dropout mask sliced) at a global batch of ``batch_size`` (or
+    the presets ``gan_cfg``, ``pretrain_cfg``), TF32 off: logs, gradients
+    (summed over ranks), G's and the Ds' parameters and statistics, the EMA,
+    the image encoder's statistics, and each step's launches.  One process:
+    the whole batch."""
+    from sba_gan_tpu_torch.config import cfg_from_file
+    from sba_gan_tpu_torch.data.cub import SyntheticDataset
+    from sba_gan_tpu_torch.data.pipeline import collate
+    from sba_gan_tpu_torch.parallel import dist
+    from sba_gan_tpu_torch.train.damsm import DAMSMTrainer, build_damsm_models
+    from sba_gan_tpu_torch.train.gan import GANStep, init_gan_state
+
+    wrappers = _kernel_wrappers()
+    mine = dist.rows(batch_size // dist.world_size())
+    cfg, models, batch, z, eps = gan_step_inputs(SEED, batch_size, gan_cfg)
+    still = still_ds(cfg)
+    out = {}
+    with tf32(cudnn=False, matmul=False):
+        state = init_gan_state(still, models, device=device)
+        step = GANStep(still, state)
+        reset_launches(wrappers)
+        logs = step([i[mine].to(device) for i in batch.imgs], batch.captions[mine].to(device),
+                    batch.cap_lens[mine], batch.class_ids[mine].to(device),
+                    z=z.to(device), eps=eps.to(device))
+        nets = {"G": state.generator, **{f"D{i}": d for i, d in enumerate(state.discriminators)}}
+        sd = state.state_dict()
+        tensors = {f"G.{n}": v.cpu() for n, v in sd["generator"].items()}
+        tensors.update({f"D{i}.{n}": v.cpu() for i, d in enumerate(sd["discriminators"])
+                        for n, v in d.items()})
+        out["gan"] = dict(
+            logs={k: float(v) for k, v in logs.items()}, launches=read_launches(wrappers),
+            grads={f"{k}.{n}": p.grad.cpu().double() for k, m in nets.items()
+                   for n, p in m.named_parameters()},
+            tensors=tensors, ema={n: v.cpu() for n, v in sd["g_ema"].items()})
+        del state, step, models
+
+        pcfg = cfg_from_file(pretrain_cfg or PRETRAIN_CFG)
+        pcfg.TRAIN.BATCH_SIZE = batch_size
+        pmodels = build_damsm_models(pcfg, N_WORDS, seed=SEED)
+        ds = SyntheticDataset(num_examples=batch_size, base_size=pcfg.TREE.BASE_SIZE,
+                              branch_num=pcfg.TREE.BRANCH_NUM,
+                              words_num=pcfg.TEXT.WORDS_NUM, n_words=N_WORDS, seed=SEED)
+        pbatch = collate([ds[i] for i in range(batch_size)])
+        emb = pmodels.text_encoder.encoder.embedding_dim
+        keep = (torch.rand((batch_size, pcfg.TEXT.WORDS_NUM, emb),
+                           generator=torch.Generator().manual_seed(SEED + 2)) >= 0.5)
+        trainer = DAMSMTrainer(pcfg, pmodels, device=device)
+        reset_launches(wrappers)
+        plogs = trainer.train_step(pbatch.imgs[-1][mine].to(device),
+                                   pbatch.captions[mine].to(device), pbatch.cap_lens[mine],
+                                   pbatch.class_ids[mine].to(device),
+                                   keep_mask=keep[mine].to(device))
+        grads = {f"text.{n}": p.grad.cpu() for n, p in trainer.text_encoder.named_parameters()}
+        grads.update({f"image.{n}": p.grad.cpu() for n, p in
+                      trainer.image_encoder.named_parameters() if p.grad is not None})
+        out["pretrain"] = dict(
+            logs={k: float(v) for k, v in plogs.items()}, launches=read_launches(wrappers),
+            grads=grads, stats={n: b.cpu() for n, b in trainer.image_encoder.state_dict().items()
+                                if n.endswith(("running_mean", "running_var"))})
+    return out
+
+
+def _gloo2_worker(rank: int, port: int, out: str, device: str, cfgs) -> None:
+    """One of two ranks on ``device`` (the one card) over gloo (spawned)."""
+    from sba_gan_tpu_torch.parallel import dist
+
+    try:
+        with world_of(rank, 2, port), dist.distributed(None, device, backend="gloo") as dev:
+            result = dist_cases(dev.type, 8, *cfgs)
+        torch.save(result, os.path.join(out, f"{rank}.pt"))
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _spawn_ranks(target, world: int, timeout: float, *args):
+    """Each rank's saved result of ``target(rank, port, out, *args)`` run in
+    ``world`` spawned processes; raises if one fails or outlives ``timeout``
+    seconds (all are stopped)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out:
+        port = free_port()
+        procs = [ctx.Process(target=target, args=(r, port, out, *args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        late = [p for p in procs if p.is_alive()]
+        for p in late:
+            p.kill()
+            p.join(30)
+        errors = [open(os.path.join(out, n)).read() for n in sorted(os.listdir(out))
+                  if n.endswith(".err")]
+        if late or errors or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"{world} ranks: {len(late)} past {timeout} s, exit codes "
+                                 f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+        return [torch.load(os.path.join(out, f"{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def phase_dist_gloo2(batch_size=8, timeout=400.0, device="cuda", cfgs=(None, None)):
+    """Two ranks on the one card over gloo (CUDA tensors; NCCL refuses two
+    ranks on one device), each with 4 rows of a global batch of 8, against
+    one process at 8 on the card (:func:`dist_cases`): the GAN step within
+    the gan_step phase's bounds (card against card: the sums run in another
+    order and cudnn picks kernels by batch), the pretrain step within
+    PRETRAIN_TOL; both ranks end with the same logs and parameters; each
+    rank launches K4 2, K1 1, K2 1 in the GAN step and K1, K2, K3 once in
+    the pretrain step."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_gloo2_worker, 2, timeout,
+                         "cuda:0" if device == "cuda" else device, cfgs)
+    one = dist_cases(device, batch_size, *cfgs)
+    lr = 2e-4
+    g2, g1 = ranks[0]["gan"], one["gan"]
+    keys = g1["logs"].keys()
+    stats = [n for n in g1["tensors"] if n.endswith(("running_mean", "running_var"))]
+    ge = grad_errs(g2, g1)
+    gan = {"logs": max(abs(g2["logs"][k] - g1["logs"][k]) / abs(g1["logs"][k]) for k in keys),
+           "stats": max(_rel_err(g2["tensors"][n], g1["tensors"][n]) for n in stats),
+           "d_grads": ge["d_grads"], "g_grads": ge["g_grads"], "worst_grads": ge["worst"],
+           **param_readings((g2, g1), (g2, g1), lr)}
+    p2, p1 = ranks[0]["pretrain"], one["pretrain"]
+    pre = {"logs": max(abs(p2["logs"][k] - p1["logs"][k]) / abs(p1["logs"][k])
+                       for k in p1["logs"]),
+           "grads": max(_rel_err(g, p1["grads"][n]) for n, g in p2["grads"].items()),
+           "stats": max(_rel_err(s, p1["stats"][n]) for n, s in p2["stats"].items())}
+    same = all(torch.equal(ranks[0]["gan"]["tensors"][n], t)
+               for n, t in ranks[1]["gan"]["tensors"].items()) and \
+        ranks[0]["gan"]["logs"] == ranks[1]["gan"]["logs"] and \
+        ranks[0]["pretrain"]["logs"] == ranks[1]["pretrain"]["logs"]
+    pre_launches = {"word_attention": 0, "damsm_sim_fwd": 1, "damsm_sim_dimg": 1,
+                    "damsm_sim_dwords": 1}
+    launches = [{"gan_step": r["gan"]["launches"], "pretrain_step": r["pretrain"]["launches"]}
+                for r in ranks]
+    say("dist_gloo2", batch=batch_size, ranks=2, backend="gloo", logs_2ranks=g2["logs"],
+        logs_1proc=g1["logs"], pretrain_logs_2ranks=p2["logs"],
+        pretrain_logs_1proc=p1["logs"], gan_readings=gan, pretrain_readings=pre,
+        ranks_identical=same, launches_per_rank=launches,
+        tol={"gan": GAN_STEP_TOL, "pretrain": PRETRAIN_TOL},
+        seconds=time.perf_counter() - t0)
+    bad = [f"gan.{k}" for k in ("logs", "stats", "d_grads", "g_grads",
+                                "params_agreeing_excess", "params_adam_excess", "ema_excess")
+           if not gan[k] <= GAN_STEP_TOL[k]]
+    bad += [f"pretrain.{k}" for k, v in pre.items() if not v <= PRETRAIN_TOL[k]]
+    if not gan["params_sign_share"] > GAN_SIGN_SHARE:
+        bad.append("gan.params_sign_share")
+    if not same:
+        bad.append("the ranks differ")
+    if any(r != {"gan_step": GAN_STEP_LAUNCHES, "pretrain_step": pre_launches}
+           for r in launches):
+        bad.append(f"launches {launches}")
+    if bad:
+        raise AssertionError(f"dist_gloo2: {bad}")
+    return launches
+
+
+def _bench_summary(r: dict) -> dict:
+    """The fields of a bench result that the data-parallel lines keep."""
+    prof = r["profile"]
+    return dict(
+        batch=r["batch"], grad_accum=r["grad_accum"], accum_mode=r["accum_mode"],
+        ranks=r["ranks"], images_per_sec=r["images_per_sec"], ms_per_step=r["ms_per_step"],
+        step_ms_median=r["step_ms_median"], device_ms_per_step=prof["device_ms_per_step"],
+        launches_per_step=prof["launches_per_step"],
+        collective_device_ms_per_step=prof["collective_device_ms_per_step"],
+        collective_launches_per_step=prof["collective_launches_per_step"],
+        device_idle_share=prof["device_idle_share"], peak_memory_bytes=r["peak_memory_bytes"],
+        out_of_memory=r["out_of_memory"], finite=r["finite"],
+        kernel_launches_per_step={k: prof["hand_written_kernels"][k]["launches_per_step"]
+                                  for k in GAN_KERNELS})
+
+
+def collective_host_us(calls: int = 500) -> dict:
+    """Host microseconds of one call of each collective the step makes, on
+    a (2, 64) float32 tensor on the card, averaged over ``calls`` calls
+    queued back to back and closed by one synchronize."""
+    from sba_gan_tpu_torch.parallel import dist
+
+    x = torch.randn(2, 64, device="cuda", requires_grad=True)
+    out = {}
+    for name, fn in (("reduce", lambda: dist.reduce(x)), ("gather", lambda: dist.gather(x)),
+                     ("batch_moments", lambda: dist.batch_moments(x, 7)),
+                     ("host_gather", lambda: dist.gather(torch.arange(4)))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e6 / calls
+    return out
+
+
+def phase_gan_bench_dist(plain_b128: dict):
+    """``bench.measure`` (no phase split or FLOP count) at the flagship dims,
+    float32 at PyTorch's TF32 defaults, beside the gan_bench phase's line at
+    batch 128 (``plain_b128``, this call's): the plain step at batch 64,
+    GRAD_ACCUM 2 at batch 64 in 'window' and in 'dfresh' (an update of 128),
+    and the world of one over NCCL at 128 with the collectives' device ms
+    and the host time of one call of each.  Each line: images/s, ms a step,
+    device ms and launches a step, idle share, peak memory, the kernels'
+    launches a step (K4 2, K1 1, K2 1)."""
+    from sba_gan_tpu_torch import bench
+    from sba_gan_tpu_torch.config import cfg_from_dict
+
+    t0 = time.perf_counter()
+    lines, bad = {"plain_b128": _bench_summary(plain_b128)}, []
+    for label, batch, accum, mode, nccl in (
+            ("plain_b64", 64, 1, "window", False),
+            ("accum2_window_b64", 64, 2, "window", False),
+            ("accum2_dfresh_b64", 64, 2, "dfresh", False),
+            ("nccl1_b128", 128, 1, "window", True)):
+        cfg = cfg_from_dict(copy.deepcopy(bench.FLAGSHIP))
+        cfg.TRAIN.GRAD_ACCUM, cfg.TRAIN.GRAD_ACCUM_MODE = accum, mode
+        with (nccl_world_of_one(cfg) if nccl else contextlib.nullcontext()):
+            lines[label] = _bench_summary(bench.measure(cfg, batch, torch.device("cuda"),
+                                                        detail=False))
+            if nccl:
+                lines[label]["collective_host_us"] = collective_host_us()
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, line in lines.items():
+        if not line["finite"] or line["kernel_launches_per_step"] != GAN_STEP_LAUNCHES:
+            bad.append(f"{label}: finite {line['finite']}, "
+                       f"launches {line['kernel_launches_per_step']}")
+    say("gan_bench_dist", lines=lines, seconds=time.perf_counter() - t0)
+    if bad:
+        raise AssertionError(f"gan_bench_dist: {bad}")
+    return {k: v["kernel_launches_per_step"] for k, v in lines.items()}
+
+
+def _torchrun(module: str, argv) -> subprocess.Popen:
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    module argv`` from the repository's root, started."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", module, *argv]
+    return subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _finish(proc: subprocess.Popen, t0: float, timeout: float = 300.0) -> float:
+    """Waits for a :func:`_torchrun` process (killed past ``timeout``
+    seconds); its seconds since ``t0``.  Raises on a non-zero exit, with
+    the end of its output."""
+    try:
+        output, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        output, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(proc.args)}: exit {proc.returncode}\n"
+                             f"{output[-4000:]}")
+    return time.perf_counter() - t0
+
+
+# the torchrun CLIs at small widths: their full-width paths run in process
+# (pretrain_cli, gan_cli); here the ranks' plumbing is under test
+DIST_CLI_WIDTHS = {"GAN": {"GF_DIM": 8, "DF_DIM": 8, "Z_DIM": 8, "W_DIM": 16,
+                           "CONDITION_DIM": 8, "R_NUM": 1},
+                   "TEXT": {"EMBEDDING_DIM": 32, "WORDS_NUM": 6},
+                   "MODEL": {"INCEPTION_INPUT": 75}}
+
+
+def _cli_yaml(preset_path, out, name, **train):
+    """``preset_path`` at DIST_CLI_WIDTHS with ``train`` keys, written to
+    ``out/name.yml``."""
+    import yaml
+
+    with open(preset_path) as f:
+        raw = yaml.safe_load(f)
+    for group, keys in DIST_CLI_WIDTHS.items():
+        raw.setdefault(group, {}).update(keys)
+    raw.setdefault("TRAIN", {}).update(train)
+    path = os.path.join(out, f"{name}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def phase_dist_cli(out, batch_size=8, accum=3, device="cuda"):
+    """``torchrun --standalone --nproc_per_node 1`` runs ``main`` (bird_style
+    at DIST_CLI_WIDTHS) on synthetic data with GRAD_ACCUM ``accum``: an
+    epoch of 4 steps saves in the middle of a window (micro-step 1 of 3),
+    and a second call resumes and finishes it (step 8 at micro-step 2);
+    ``pretrain`` (DAMSM/bird at those widths) runs one epoch the same way,
+    beside the first call."""
+    from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
+
+    t0 = time.perf_counter()
+    yml = _cli_yaml(GAN_CFG, out, "dist_gan", BATCH_SIZE=batch_size, GRAD_ACCUM=accum)
+    pyml = _cli_yaml(PRETRAIN_CFG, out, "dist_damsm", BATCH_SIZE=batch_size)
+    gan_dir, damsm_dir = os.path.join(out, "dist_gan"), os.path.join(out, "dist_damsm")
+    argv = ["--cfg", yml, "--synthetic", "--output_dir", gan_dir, "--device", device]
+    pretraining = _torchrun("sba_gan_tpu_torch.pretrain",
+                            ["--cfg", pyml, "--synthetic", "--max_epoch", "1",
+                             "--output_dir", damsm_dir, "--device", device])
+    seconds = {"gan_epoch_0": _finish(_torchrun("sba_gan_tpu_torch.main",
+                                                argv + ["--max_epoch", "1"]), t0),
+               "pretrain_epoch_0": _finish(pretraining, t0)}
+    t1 = time.perf_counter()
+    seconds["gan_resume_epoch_1"] = _finish(
+        _torchrun("sba_gan_tpu_torch.main", argv + ["--max_epoch", "2"]), t1)
+    ckpt = Checkpointer(os.path.join(gan_dir, "Model"))
+    first, second = ckpt.restore(0), ckpt.restore(1)
+    damsm = Checkpointer(os.path.join(damsm_dir, "Model"))
+    found = dict(gan_checkpoints=ckpt.steps(), steps=[first["step"], second["step"]],
+                 micro=[first["accum"]["micro"], second["accum"]["micro"]],
+                 damsm_checkpoints=damsm.steps(), damsm_steps=damsm.restore()["step"])
+    say("dist_cli", batch=batch_size, grad_accum=accum, widths=DIST_CLI_WIDTHS, **found,
+        call_seconds=seconds, seconds=time.perf_counter() - t0)
+    want = dict(gan_checkpoints=[0, 1], steps=[4, 8], micro=[4 % accum, 8 % accum],
+                damsm_checkpoints=[0], damsm_steps=4)
+    if found != want:
+        raise AssertionError(f"dist_cli: {found} (want {want})")
+
+
 DAMSM_KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     "damsm_sim_fwd": ("sba_gan_tpu_torch/ops/csrc/damsm_sim.cu",
                       "sba_gan_tpu/ops/damsm_sim.py:157"),
@@ -2254,6 +2888,23 @@ def main() -> int:
         bert_pretrain_launches = phase_pretrain_step_bert()
         bert_bench_launches = phase_gan_bench_bert(style_lines)
         bert_cli_pretrain_launches, bert_cli_gan_launches = phase_bert_cli(out)
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(1) as pool:  # the CPU's float64 window beside two phases
+            inputs = accum_inputs()
+            cpu_window = pool.submit(accum_cpu_window, inputs)
+            gloo2_launches = phase_dist_gloo2()
+            nccl1_launches = phase_dist_nccl1()
+            accum_launches = phase_grad_accum(inputs, cpu_window.result())
+        bench_dist_launches = phase_gan_bench_dist(style_lines["float32"])
+        phase_dist_cli(out)
+    dist_paths = {  # each kernel's launches on the data-parallel and accumulation paths
+        k: {"grad_accum_micro_steps": {m: [c[k] for c in v] for m, v in accum_launches.items()},
+            "nccl_world_of_one_3_steps_float32": nccl1_launches["float32"][k],
+            "nccl_world_of_one_1_step_bfloat16": nccl1_launches["bfloat16"][k],
+            "gloo_2_ranks_per_rank": [{p: r[p][k] for p in r} for r in gloo2_launches],
+            "bench_dist_per_step": {b: v[k] for b, v in bench_dist_launches.items()}}
+        for k in GAN_KERNELS}
     bert_paths = {  # each kernel's launches on the BERT paths
         k: {"bird_bert_gan_step": bert_gan_launches[k],
             "bird_mixing_gan_step": mixing_launches[k],
@@ -2292,6 +2943,7 @@ def main() -> int:
         "gen_example_launches": gen_launches,
         "reproduce_launches": reproduce_launches,
         "bert_paths": bert_paths["word_attention"],
+        "dist_paths": dist_paths["word_attention"],
     }]
     for kname, (source, replaces) in DAMSM_KERNELS.items():
         row, gan = damsm_rows["pretrain"][kname], damsm_rows["gan_step"][kname]
@@ -2309,6 +2961,7 @@ def main() -> int:
                                              "bound_ms", "bound_by", "eager_ms",
                                              "bound_tc_ms")},
             "bert_paths": bert_paths[kname],
+            "dist_paths": dist_paths[kname],
         })
     row16, gan_rows16 = rows16
     kernels.append({

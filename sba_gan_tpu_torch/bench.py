@@ -1,6 +1,8 @@
 """Bench of the port's flagship GAN train step on one card.
 
     python -m sba_gan_tpu_torch.bench [--device cuda] [--dtype float32|bfloat16]
+        [--batch B] [--grad_accum K --accum_mode window|dfresh]
+    torchrun --standalone --nproc_per_node N -m sba_gan_tpu_torch.bench
 
 The workload of the JAX package's ``bench.py``: bird_style at BRANCH_NUM 3
 (64/128/256 images), GF_DIM 32, DF_DIM 64, Z_DIM 100, R_NUM 2,
@@ -25,6 +27,13 @@ FLOPs with ``FlopCounterMode``, plus those of the hand-written kernels,
 which it cannot see.  A batch that does not fit is reported with the peak
 memory it reached, and the next smaller one is timed.
 
+``--grad_accum K`` runs ``TRAIN.GRAD_ACCUM`` K in ``--accum_mode`` (a step
+is a micro-step; K micro-steps of B make one update of K B).  Under
+``torchrun`` each rank runs its rows of the global batch B
+(:mod:`parallel.dist`); rank 0 prints the line, with images/s over the
+global batch, the rank count and the collectives' device ms a step (the
+NCCL kernels in the profile).
+
 Prints one JSON line, ``{"metric": "gan_train_step_images_per_sec_256px_h100",
 "value": ..., "unit": "images/sec", ...}``.  Without CUDA it raises;
 ``--device cpu`` runs a tiny-width smoke of the same code on the CPU, whose
@@ -44,8 +53,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from sba_gan_tpu_torch.config import cfg_from_dict
+from sba_gan_tpu_torch.parallel import dist
 from sba_gan_tpu_torch.train.gan import GANStep, build_models, init_gan_state
-from sba_gan_tpu_torch.utils.platform import resolve_device
 
 FLAGSHIP = {
     "TREE": {"BRANCH_NUM": 3, "BASE_SIZE": 64},
@@ -78,7 +87,8 @@ SEED = 0
 def make_batch(cfg, batch: int, device, seed: int):
     """Images in [-1, 1] per branch, captions of 4..WORDS_NUM words, 20
     classes; all on ``device`` except the lengths (the CPU, as the data
-    pipeline keeps them)."""
+    pipeline keeps them).  Across ranks, this rank's rows of the global
+    batch ``batch``."""
     t = cfg.TEXT.WORDS_NUM
     gen = torch.Generator().manual_seed(seed)
     cap_lens = torch.randint(4, t + 1, (batch,), generator=gen)
@@ -89,7 +99,9 @@ def make_batch(cfg, batch: int, device, seed: int):
     sizes = [cfg.TREE.BASE_SIZE * 2 ** i for i in range(cfg.TREE.BRANCH_NUM)]
     imgs = tuple(torch.rand((batch, s, s, 3), generator=dev_gen, device=device) * 2 - 1
                  for s in sizes)
-    return imgs, captions.to(device), cap_lens, class_ids.to(device)
+    mine = dist.rows(dist.local_batch_size(batch, dist.world_size()))
+    return (tuple(i[mine] for i in imgs), captions[mine].to(device), cap_lens[mine],
+            class_ids[mine].to(device))
 
 
 def custom_kernel_flops(cfg, batch: int, cap_lens: torch.Tensor) -> Dict[str, float]:
@@ -144,6 +156,7 @@ def profile_steps(step, args_, steps: int) -> Dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, ranges = device_events(prof.key_averages())
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
     named = {}
     for short, kname in KERNEL_NAMES.items():
         hits = [e for e in kernels if kname in e.key]
@@ -157,6 +170,8 @@ def profile_steps(step, args_, steps: int) -> Dict:
         "annotated_ranges_ms_per_step": {e.key: _device_us(e) / 1e3 / steps for e in ranges},
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "launches_per_step": sum(e.count for e in kernels) / steps,
+        "collective_device_ms_per_step": sum(_device_us(e) for e in nccl) / 1e3 / steps,
+        "collective_launches_per_step": sum(e.count for e in nccl) / steps,
         "hand_written_kernels": named,
         "top_kernels": [{"name": e.key[:100], "calls_per_step": e.count / steps,
                          "device_ms_per_step": _device_us(e) / 1e3 / steps} for e in top],
@@ -228,7 +243,10 @@ def component_ms(step, args_, repeats: int) -> Dict[str, float]:
     return out
 
 
-def run(cfg, batch: int, device) -> Dict:
+def run(cfg, batch: int, device, detail: bool = True) -> Dict:
+    """The step at global batch ``batch``: the timed window and the
+    profile; with ``detail`` also the phases, the G and Inception passes
+    alone and the FLOP count (and mfu)."""
     cfg = copy.deepcopy(cfg)
     cfg.TRAIN.BATCH_SIZE = batch
     cuda = device.type == "cuda"
@@ -252,8 +270,9 @@ def run(cfg, batch: int, device) -> Dict:
         marks[-1].record()
     float(logs["errG"])  # closes the window: errG depends on all of the step's work
     window_s = time.perf_counter() - t0
-    out = {"batch": batch, "steps": STEPS, "warmup": WARMUP, "warmup_s": warmup_s,
-           "window_s": window_s, "ms_per_step": window_s * 1e3 / STEPS,
+    out = {"batch": batch, "ranks": dist.world_size(), "grad_accum": cfg.TRAIN.GRAD_ACCUM,
+           "accum_mode": cfg.TRAIN.GRAD_ACCUM_MODE, "steps": STEPS, "warmup": WARMUP,
+           "warmup_s": warmup_s, "window_s": window_s, "ms_per_step": window_s * 1e3 / STEPS,
            "images_per_sec": STEPS * batch / window_s}
     if cuda:  # each step's span on the device's timeline, between its events
         step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
@@ -266,6 +285,9 @@ def run(cfg, batch: int, device) -> Dict:
     if cuda:
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         out["profile"] = profile_steps(step, args_, PROFILE_STEPS)
+    if not detail:
+        return out
+    if cuda:
         out["phase_device_ms"] = phase_ms(step, args_, PROFILE_STEPS)
         out["component_device_ms"] = component_ms(step, args_, PROFILE_STEPS)
     from torch.utils.flop_counter import FlopCounterMode
@@ -273,7 +295,7 @@ def run(cfg, batch: int, device) -> Dict:
     counter = FlopCounterMode(display=False)
     with counter:
         float(step(*args_)["errG"])
-    custom = custom_kernel_flops(cfg, batch, args_[2])
+    custom = custom_kernel_flops(cfg, args_[1].shape[0], args_[2])
     flops = counter.get_total_flops() + sum(custom.values())
     out.update(flops_per_step=flops, flop_counter_flops=counter.get_total_flops(),
                hand_written_kernel_flops=custom)
@@ -307,13 +329,13 @@ def precision(cfg) -> Dict[str, str]:
             "losses": "float32", "parameters_adam_ema": "float32"}
 
 
-def measure(cfg, batch: int, device) -> Dict:
+def measure(cfg, batch: int, device, detail: bool = True) -> Dict:
     """:func:`run` at ``batch``; on running out of card memory, the peak it
     reached is recorded and the next smaller batch of FALLBACK_BATCHES runs."""
     oom = []
     for b in (batch,) + tuple(x for x in FALLBACK_BATCHES if x < batch):
         try:
-            result = run(cfg, b, device)
+            result = run(cfg, b, device, detail)
         except torch.cuda.OutOfMemoryError as e:
             oom.append({"batch": b, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                         "error": str(e).splitlines()[0]})
@@ -330,13 +352,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="JAX.DTYPE and JAX.LOSS_DTYPE")
+    p.add_argument("--batch", type=int, default=None,
+                   help="the global batch (default 128; 4 with --device cpu)")
+    p.add_argument("--grad_accum", type=int, default=1, help="TRAIN.GRAD_ACCUM")
+    p.add_argument("--accum_mode", choices=("window", "dfresh"), default="window",
+                   help="TRAIN.GRAD_ACCUM_MODE")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
-    cuda = device.type == "cuda"
+    cuda = args.device.startswith("cuda")
     cfg = cfg_from_dict(copy.deepcopy(FLAGSHIP if cuda else TINY))
     cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = args.dtype
-    batch = cfg.TRAIN.BATCH_SIZE
-    result = measure(cfg, batch, device)
+    cfg.TRAIN.GRAD_ACCUM, cfg.TRAIN.GRAD_ACCUM_MODE = args.grad_accum, args.accum_mode
+    batch = args.batch or cfg.TRAIN.BATCH_SIZE
+    with dist.distributed(cfg, args.device) as device:
+        result = measure(cfg, batch, device)
+        if dist.is_main():
+            return _line(args, cfg, batch, result)
+        return {}
+
+
+def _line(args, cfg, batch: int, result: Dict) -> Dict:
+    cuda = args.device.startswith("cuda")
     if cuda:
         line = {"metric": "gan_train_step_images_per_sec_256px_h100",
                 "value": result["images_per_sec"], "unit": "images/sec",

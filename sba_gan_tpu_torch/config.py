@@ -3,13 +3,19 @@
 The same schema and strict YAML merge as the JAX package's config (unknown
 keys raise ``KeyError``, type mismatches raise ``ValueError``), so every
 preset of the repository loads unchanged.  The port reads ``TREE``,
-``GAN``, ``TEXT``, ``TRAIN`` (batch size, epochs, snapshot interval, the
-three learning rates, the RNN gradient clip, ``SMOOTH``, ``MIXING``,
-``FLAG``, ``NET_E``; ``GRAD_ACCUM`` > 1 raises until it is ported),
-``RNN_TYPE``, ``MODEL.TEXT_ENCODER`` / ``INCEPTION_INPUT``, and of the
-``JAX`` group only ``SEED``, ``DTYPE`` and ``LOSS_DTYPE`` (float32 or
-bfloat16, as torch dtypes through :func:`compute_dtype` and
-:func:`loss_dtype`; any other value raises).  The other ``JAX`` keys and the ``BENCH`` group
+``GAN``, ``TEXT``, ``TRAIN`` (the global batch size, epochs, snapshot
+interval, the three learning rates, the RNN gradient clip, ``SMOOTH``,
+``MIXING``, ``FLAG``, ``NET_E``, ``GRAD_ACCUM`` and ``GRAD_ACCUM_MODE``
+'window' or 'dfresh'), ``RNN_TYPE``, ``MODEL.TEXT_ENCODER`` /
+``INCEPTION_INPUT``, and of the ``JAX`` group ``SEED``, ``DTYPE`` and
+``LOSS_DTYPE`` (float32 or bfloat16, as torch dtypes through
+:func:`compute_dtype` and :func:`loss_dtype`; any other value raises),
+``MESH_DATA`` (-1, or the world size of the ``torchrun`` ranks, else
+``ValueError``), ``MESH_MODEL`` (1; above it raises
+``NotImplementedError``: the tensor-parallel Inception is not ported) and
+``SYNC_BATCHNORM``, which is accepted and, as in the JAX package, only
+documents: across ranks the BatchNorm statistics are the global batch's
+whatever it says (:mod:`parallel.dist`).  The other ``JAX`` keys and the ``BENCH`` group
 are accepted so that presets carrying them still load, and have no effect
 here.  In particular ``DAMSM_SIM_IMPL``, ``DAMSM_SIM_TILE``,
 ``DAMSM_GRID_CHUNKS``, ``DAMSM_FOLD_SOFTMAX``, ``DAMSM_CHUNKS``,
@@ -141,7 +147,8 @@ def default_config() -> ConfigDict:
                 "INCEPTION_INPUT": 299,
                 "IMAGE_LOADER": "pil",
             },
-            # Accepted for preset compatibility; no effect in the port.
+            # SEED, DTYPE, LOSS_DTYPE and the MESH keys take effect in the
+            # port; the rest are accepted for preset compatibility.
             "JAX": {
                 "SEED": 100,
                 "PLATFORM": "",

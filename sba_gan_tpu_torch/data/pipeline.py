@@ -13,6 +13,13 @@ by an item is raised to the consumer, and the pool is shut down when the
 iterator is dropped.  Items carry their own random numbers, so batches are
 the same for any number of workers.  Lengths stay on the host, because the
 packed text encoder wants host lengths.
+
+Across ranks (``rank`` of ``world``, :mod:`parallel.dist`) every rank draws
+the same seeded global order, and rank r reads and yields rows
+``[r B/N, (r+1) B/N)`` of each global batch of ``batch_size`` = B.  A
+ragged last batch cannot be split evenly, so ``drop_last=False`` with more
+than one rank raises (the JAX package's host-sharded loader slices a
+ragged batch unevenly, ``sba_gan_tpu/data/pipeline.py:112``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
+
+from sba_gan_tpu_torch.parallel.dist import local_batch_size
 
 
 class Batch(NamedTuple):
@@ -52,12 +61,17 @@ def collate(samples, device="cpu") -> Batch:
 
 class DataLoader:
     """Epoch iterator over a map-style dataset with a seeded shuffle,
-    ``drop_last`` and ``num_workers`` reader threads; each batch is put on
-    ``device``."""
+    ``drop_last`` and ``num_workers`` reader threads; each batch (this
+    rank's rows of it) is put on ``device``."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, device="cpu",
-                 num_workers: int = 0, prefetch: int = 2):
+                 num_workers: int = 0, prefetch: int = 2, rank: int = 0, world: int = 1):
+        if world > 1 and not drop_last:
+            raise ValueError("drop_last=False with more than one rank: a ragged last "
+                             "batch does not split evenly over the ranks")
+        self.local = local_batch_size(batch_size, world)
+        self.rank = rank
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -78,7 +92,8 @@ class DataLoader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(order)
-        return [order[i * self.batch_size: (i + 1) * self.batch_size]
+        mine = slice(self.rank * self.local, (self.rank + 1) * self.local)
+        return [order[i * self.batch_size: (i + 1) * self.batch_size][mine]
                 for i in range(len(self))]
 
     def __iter__(self) -> Iterator[Batch]:

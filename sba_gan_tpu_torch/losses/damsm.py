@@ -10,6 +10,14 @@
   cast to float32 first, as the JAX package casts them; ``mm_dtype``
   (``JAX.LOSS_DTYPE``) is the dtype the kernels round the operands of their
   products to.
+* :func:`damsm_losses`: both losses of this rank's rows over the global
+  batch (:mod:`parallel.dist`): every rank gathers every text's words,
+  lengths, class ids and sentence codes and every image's code; K1 runs
+  on all texts against this rank's images, giving the (B, B/N) columns of
+  sim, which are gathered into the global matrix; its gradient gives K2
+  this rank's columns (the gradient of this rank's images) and K3 every
+  text's words against this rank's images, summed over ranks.  Labels
+  and the class mask are the global ones.  One process: the plain losses.
 * :func:`own_image_attention`: the Eq. 8-9 attention of each text over its
   own image, (B, T, R), for the attention dump of the pretrain CLI; the
   losses never use it.
@@ -31,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from sba_gan_tpu_torch.ops.damsm_sim import damsm_sim
+from sba_gan_tpu_torch.parallel import dist
 
 NEG_INF = -1e9
 EPS = 1e-8
@@ -77,14 +86,35 @@ def words_loss(img_features: torch.Tensor, words_emb: torch.Tensor,
                gamma2: float = 5.0, gamma3: float = 10.0,
                mm_dtype: torch.dtype = torch.float32
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """img_features (B, R, D) regions, words_emb (B, T, D), cap_lens (B,)
+    """img_features (Bj, R, D) regions, words_emb (B, T, D), cap_lens (B,)
     real word counts in [1, T] (any device), labels (B,).  Returns
-    (image->text, text->image) cross-entropies."""
-    sim = damsm_sim(words_emb.float(), img_features.float(), cap_lens, gamma1, gamma2,
-                    mm_dtype)
+    (image->text, text->image) cross-entropies.  One process: Bj = B.
+    Across ranks: every text's words and this rank's images, whose columns
+    of sim are gathered over ranks."""
+    sim = dist.gather(damsm_sim(words_emb.float(), img_features.float(), cap_lens,
+                                gamma1, gamma2, mm_dtype), dim=1)
     similarities = _mask_classes(sim.T * gamma3, class_ids)  # [image, text]
     return (masked_cross_entropy(similarities, labels),
             masked_cross_entropy(similarities.T, labels))
+
+
+def damsm_losses(region: torch.Tensor, code: torch.Tensor, words_emb: torch.Tensor,
+                 sent_emb: torch.Tensor, cap_lens: torch.Tensor,
+                 class_ids: Optional[torch.Tensor], gamma1: float, gamma2: float,
+                 gamma3: float, mm_dtype: torch.dtype = torch.float32
+                 ) -> Tuple[torch.Tensor, ...]:
+    """(w0, w1, s0, s1) over the global batch from this rank's rows: the
+    image encoder's region (b, R, D) and code (b, D), the text encoder's
+    words_emb (b, T, D) and sent_emb (b, D), cap_lens (b,) and class_ids
+    (b,) or None."""
+    words = dist.share(dist.gather(words_emb.float()))
+    lens = dist.gather(cap_lens)
+    ids = None if class_ids is None else dist.gather(class_ids)
+    labels = torch.arange(words.shape[0], device=region.device)
+    w0, w1 = words_loss(region, words, labels, lens, ids, gamma1, gamma2, gamma3, mm_dtype)
+    s0, s1 = sent_loss(dist.gather(code.float()), dist.gather(sent_emb.float()), labels,
+                       ids, gamma3)
+    return w0, w1, s0, s1
 
 
 def own_image_attention(img_features: torch.Tensor, words_emb: torch.Tensor,

@@ -10,24 +10,35 @@ and G terms of its ``train/gan.py`` step).
   reals, fakes and the wrong pairs (real features ``[:B-1]`` against
   ``sent[1:]``), then the unconditional head on reals and fakes;
 * :func:`generator_adv_loss`: one scale's adversarial G term.
+
+Across ranks (:mod:`parallel.dist`) each mean is over the global batch: the
+D and G terms divide by B, the wrong pairs by B - 1, and the wrong pairs
+follow the global pairing (each rank's last real image with the next
+rank's first sentence; the global last image has none).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
+from sba_gan_tpu_torch.parallel import dist
 
-def bce_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
-    """mean(softplus(l) - target * l) in float32."""
+
+def bce_logits(logits: torch.Tensor, target: float, total: Optional[int] = None
+               ) -> torch.Tensor:
+    """mean(softplus(l) - target * l) in float32, over every rank's logits
+    (``total`` of them, by default as many on each rank)."""
     logits = logits.float()
-    return (F.softplus(logits) - target * logits).mean()
+    return dist.batch_mean(F.softplus(logits) - target * logits, total)
 
 
 def kl_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """-0.5 * mean(1 + logvar - mu^2 - exp(logvar)) in float32."""
     mu, logvar = mu.float(), logvar.float()
-    return -0.5 * torch.mean(1.0 + logvar - mu * mu - torch.exp(logvar))
+    return -0.5 * dist.batch_mean(1.0 + logvar - mu * mu - torch.exp(logvar))
 
 
 def discriminator_loss(dnet, real: torch.Tensor, fake: torch.Tensor,
@@ -35,12 +46,13 @@ def discriminator_loss(dnet, real: torch.Tensor, fake: torch.Tensor,
     """(real + cond_real) / 2 + (fake + cond_fake + wrong) / 3, or without an
     unconditional head cond_real + (cond_fake + wrong) / 2.  ``fake`` must
     already be detached."""
-    b = real.shape[0]
     real_f = dnet(real)
     fake_f = dnet(fake)
     cond_real = bce_logits(dnet.cond_logits(real_f, sent_emb), 1.0)
     cond_fake = bce_logits(dnet.cond_logits(fake_f, sent_emb), 0.0)
-    cond_wrong = bce_logits(dnet.cond_logits(real_f[: b - 1], sent_emb[1:]), 0.0)
+    wrong_sent = dist.next_rows(sent_emb)  # sentence g + 1 for image g
+    cond_wrong = bce_logits(dnet.cond_logits(real_f[: wrong_sent.shape[0]], wrong_sent), 0.0,
+                            real.shape[0] * dist.world_size() - 1)
     if dnet.UNCOND_DNET is None:
         return cond_real + (cond_fake + cond_wrong) / 2.0
     real_u = bce_logits(dnet.uncond_logits(real_f), 1.0)

@@ -25,9 +25,16 @@ JAX package skips it).
 ``rnn``, BERT's wordpieces (``data/vocab.py``) for ``bert``, in the caption
 cache and in ``gen_example``'s captions.
 
+Training runs on N ranks, one process per GPU, under ``torchrun``
+(:mod:`parallel.dist`): ``TRAIN.BATCH_SIZE`` is the global batch, each rank
+trains on its rows, rank 0 writes; ``JAX.MESH_DATA`` must be -1 or the
+world size.  Sampling and ``gen_example`` stay one process.
+
 Usage (on the card; ``--device cpu`` runs on the CPU):
 
     python -m sba_gan_tpu_torch.main \\
+        --cfg sba_gan_tpu_torch/configs/bird_style.yml --synthetic --max_epoch 1
+    torchrun --standalone --nproc_per_node 8 -m sba_gan_tpu_torch.main \\
         --cfg sba_gan_tpu_torch/configs/bird_style.yml --synthetic --max_epoch 1
     python -m sba_gan_tpu_torch.main \\
         --cfg sba_gan_tpu_torch/configs/bird_bert.yml --synthetic --max_epoch 1
@@ -49,8 +56,8 @@ import torch
 
 from sba_gan_tpu_torch.config import cfg_from_file, default_config
 from sba_gan_tpu_torch.data.pipeline import build_dataset
+from sba_gan_tpu_torch.parallel import dist
 from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
-from sba_gan_tpu_torch.utils.platform import resolve_device
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -114,8 +121,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     training the epoch resumed from and per epoch its step count, last logs
     and seconds; else the directory written."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
     cfg = cfg_from_file(args.cfg_file) if args.cfg_file else default_config()
+    with dist.distributed(cfg, args.device) as device:
+        return _run(args, cfg, device)
+
+
+def _run(args, cfg, device) -> Dict:
+    if dist.world_size() > 1 and not cfg.TRAIN.FLAG:
+        raise NotImplementedError("sampling and gen_example across ranks are not "
+                                  "ported (ROADMAP.md, queue 1, item 8): run them in one process")
     if args.data_dir:
         cfg.DATA_DIR = args.data_dir
     if args.manualSeed is None:
@@ -124,10 +138,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     random.seed(args.manualSeed)
     np.random.seed(args.manualSeed)
     torch.manual_seed(args.manualSeed)
-    print("Using config:")
-    pprint.pprint(cfg)
+    if dist.is_main():
+        print("Using config:")
+        pprint.pprint(cfg)
 
-    now = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+    now = dist.broadcast_object(datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S"))
     output_dir = args.output_dir or os.path.join(
         "output", f"{cfg.DATASET_NAME}_{cfg.CONFIG_NAME}_{now}")
     dataset = build_dataset(cfg, args.synthetic, "train" if cfg.TRAIN.FLAG else "test")

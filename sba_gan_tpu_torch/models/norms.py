@@ -22,6 +22,14 @@ the widened input, the result cast back to bfloat16; the running
 statistics stay float32.  (The JAX package's compact BatchNorm,
 ``BN_COMPACT``, applies scale and offset in the compute dtype instead; the
 port does not take that memory lever.)
+
+Across ranks (:mod:`parallel.dist`) the train-mode statistics are those of
+the global batch, as the JAX package's on its mesh (its ``SYNC_BATCHNORM``
+semantics): each rank's per-channel E[x] and E[x^2] go through one
+differentiable all_reduce, weighted by its share of the rows, so the
+running statistics come out the same on every rank.  (``torch.nn.SyncBatchNorm``
+computes another function: Welford's variance and an unbiased running
+variance.)
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from typing import Iterator
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sba_gan_tpu_torch.parallel import dist
 
 
 def promote(x: torch.Tensor) -> torch.Tensor:
@@ -61,8 +71,11 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         dims = [0] + list(range(2, x.dim()))
-        mean = x.mean(dim=dims)
-        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        mean, meansq = x.mean(dim=dims), (x * x).mean(dim=dims)
+        if dist.active():
+            mean, meansq = dist.batch_moments(torch.stack([mean, meansq]),
+                                              x.numel() // x.shape[1])
+        var = torch.clamp(meansq - mean * mean, min=0.0)
         if self.update_stats:
             with torch.no_grad():
                 m = self.flax_momentum

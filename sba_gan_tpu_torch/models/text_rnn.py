@@ -25,6 +25,8 @@ import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+from sba_gan_tpu_torch.parallel import dist
+
 
 class RNNEncoder(nn.Module):
     def __init__(self, ntoken: int, ninput: int = 300, nhidden: int = 256,
@@ -46,10 +48,13 @@ class RNNEncoder(nn.Module):
     def dropout_mask(self, captions: torch.Tensor,
                      generator: torch.Generator) -> torch.Tensor:
         """(B, T, ninput) bool keep-mask of the embedding dropout, drawn on
-        the CPU from ``generator`` (the same mask whatever the device)."""
-        shape = (*captions.shape, self.encoder.embedding_dim)
+        the CPU from ``generator`` (the same mask whatever the device).
+        Across ranks it is drawn for the global batch and this rank's rows
+        are taken, so N ranks drop what one process drops."""
+        b, t = captions.shape
+        shape = (b * dist.world_size(), t, self.encoder.embedding_dim)
         keep = torch.rand(shape, generator=generator) >= self.drop_prob
-        return keep.to(captions.device)
+        return keep[dist.rows(b)].to(captions.device)
 
     def forward(self, captions: torch.Tensor, cap_lens: torch.Tensor,
                 keep_mask: Optional[torch.Tensor] = None,

@@ -4,9 +4,16 @@ an evaluation of at most 50 batches each epoch, the x0.98 learning-rate
 decay, attention-map dumps every 50 steps, a checkpoint each
 epoch, resume from the latest one, and a save on Ctrl-C.
 
+It runs on N ranks, one process per GPU, under ``torchrun``
+(:mod:`parallel.dist`): ``TRAIN.BATCH_SIZE`` is the global batch, each rank
+trains and evaluates on its rows of it, and rank 0 alone prints, dumps the
+attention maps and writes the checkpoints (every rank waits for each).
+
 Usage (on the card; ``--device cpu`` runs on the CPU):
 
     python -m sba_gan_tpu_torch.pretrain \\
+        --cfg sba_gan_tpu_torch/configs/DAMSM/bird.yml --synthetic --max_epoch 1
+    torchrun --standalone --nproc_per_node 8 -m sba_gan_tpu_torch.pretrain \\
         --cfg sba_gan_tpu_torch/configs/DAMSM/bird.yml --synthetic --max_epoch 1
 """
 
@@ -26,9 +33,9 @@ import torch
 from sba_gan_tpu_torch.config import cfg_from_file, default_config
 from sba_gan_tpu_torch.data.pipeline import DataLoader, build_dataset
 from sba_gan_tpu_torch.losses.damsm import own_image_attention
+from sba_gan_tpu_torch.parallel import dist
 from sba_gan_tpu_torch.train.damsm import DAMSMTrainer, build_damsm_models
 from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
-from sba_gan_tpu_torch.utils.platform import resolve_device
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -57,7 +64,7 @@ def run_epoch(trainer, loader, log_every=50, image_dir=None, ixtoword=None,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         logs_seen.append(logs)
         count = len(logs_seen)
-        if count % log_every == 0:
+        if count % log_every == 0 and dist.is_main():
             print(f"  step {count} | w {logs['w_loss0']:.2f} {logs['w_loss1']:.2f} "
                   f"| s {logs['s_loss0']:.2f} {logs['s_loss1']:.2f} "
                   f"| {statistics.mean(step_ms):.0f} ms/batch", flush=True)
@@ -107,16 +114,29 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Runs the CLI; returns a summary: per epoch its step logs, step ms and
     validation loss, and the checkpoint directory."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
     cfg = cfg_from_file(args.cfg_file) if args.cfg_file else default_config()
+    with dist.distributed(cfg, args.device) as device:
+        return _run(args, cfg, device)
+
+
+def _save(ckpt, epoch, trainer) -> None:
+    """Rank 0 writes; every rank waits for it."""
+    if dist.is_main():
+        ckpt.save(epoch, trainer.state_dict())
+    dist.barrier()
+
+
+def _run(args, cfg, device) -> Dict:
     if args.data_dir:
         cfg.DATA_DIR = args.data_dir
     cfg.JAX.SEED = args.manualSeed
     random.seed(args.manualSeed)
     np.random.seed(args.manualSeed)
     torch.manual_seed(args.manualSeed)
-    print("Using config:")
-    pprint.pprint(cfg)
+    main = dist.is_main()
+    if main:
+        print("Using config:")
+        pprint.pprint(cfg)
 
     output_dir = args.output_dir or os.path.join(
         "output", f"DAMSM_{cfg.DATASET_NAME}_{cfg.CONFIG_NAME}")
@@ -129,12 +149,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     latest = ckpt.latest_step()
     if latest is not None:
         trainer.load_state_dict(ckpt.restore())
-        print(f"resumed from epoch {latest}")
+        if main:
+            print(f"resumed from epoch {latest}")
 
     bs = cfg.TRAIN.BATCH_SIZE
+    shard = dict(rank=dist.rank(), world=dist.world_size())
     train_loader = DataLoader(train_ds, bs, shuffle=True, drop_last=True,
-                              seed=cfg.JAX.SEED, device=device, num_workers=cfg.WORKERS)
-    val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=True, device=device)
+                              seed=cfg.JAX.SEED, device=device, num_workers=cfg.WORKERS,
+                              **shard)
+    val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=True, device=device,
+                            **shard)
 
     max_epoch = args.max_epoch or cfg.TRAIN.MAX_EPOCH
     start = latest + 1 if latest is not None else 0
@@ -145,21 +169,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             lr = trainer.reset_optimizer(epoch)
             t0 = time.time()
             logs, step_ms = run_epoch(
-                trainer, train_loader, image_dir=os.path.join(output_dir, "Image"),
+                trainer, train_loader,
+                image_dir=os.path.join(output_dir, "Image") if main else None,
                 ixtoword=train_ds.ixtoword, epoch=epoch)
             val = evaluate(trainer, val_loader)
             later = step_ms[1:] or step_ms
-            print(f"[{epoch}/{max_epoch}] lr {lr:.3g} | {len(logs)} steps | "
-                  f"median step {statistics.median(later):.1f} ms after the first "
-                  f"| last {logs[-1] if logs else {}} | val loss {val:.3f} "
-                  f"| {time.time() - t0:.1f}s", flush=True)
-            ckpt.save(epoch, trainer.state_dict())
+            if main:
+                print(f"[{epoch}/{max_epoch}] lr {lr:.3g} | {len(logs)} steps | "
+                      f"median step {statistics.median(later):.1f} ms after the first "
+                      f"| last {logs[-1] if logs else {}} | val loss {val:.3f} "
+                      f"| {time.time() - t0:.1f}s", flush=True)
+            _save(ckpt, epoch, trainer)
             summary["epochs"].append({"epoch": epoch, "lr": lr, "logs": logs,
                                       "step_ms": step_ms, "val": val})
     except KeyboardInterrupt:
         # save under the epoch reached, so a resume goes on from the next one
         print("Ctrl-C: saving and exiting")
-        ckpt.save(epoch, trainer.state_dict())
+        if main:
+            ckpt.save(epoch, trainer.state_dict())
     return summary
 
 

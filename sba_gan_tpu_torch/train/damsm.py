@@ -23,6 +23,13 @@ jointly on the words and sentence losses (the JAX package's
 The similarity of the words loss goes through kernels K1-K3 on the card,
 with ``JAX.LOSS_DTYPE`` as their ``mm_dtype``; the encoders compute in
 ``JAX.DTYPE`` with float32 parameters.
+
+Across ranks (:mod:`parallel.dist`) each rank takes its rows of the global
+batch; the losses are the global batch's (:func:`losses.damsm.damsm_losses`:
+K1, K2 and K3 on this rank's images), the Inception's train-mode
+BatchNorms take the global statistics, the dropout mask is drawn for the
+global batch and sliced, and both sides' gradients are summed over ranks
+before the clip, which so sees the global gradient, as optax's does.
 """
 
 from __future__ import annotations
@@ -33,10 +40,11 @@ import torch
 from torch import nn
 
 from sba_gan_tpu_torch.config import compute_dtype, loss_dtype
-from sba_gan_tpu_torch.losses.damsm import sent_loss, words_loss
+from sba_gan_tpu_torch.losses.damsm import damsm_losses
 from sba_gan_tpu_torch.models.inception import CNNEncoder, HEADS
 from sba_gan_tpu_torch.models.inception import init_weights as init_image_weights
 from sba_gan_tpu_torch.models.text_rnn import RNNEncoder
+from sba_gan_tpu_torch.parallel import dist
 from sba_gan_tpu_torch.train.sample import build_text_encoder, init_text_weights
 from sba_gan_tpu_torch.utils.platform import resolve_device
 
@@ -128,25 +136,23 @@ class DAMSMTrainer:
 
     def _losses(self, img, captions, cap_lens, class_ids, keep_mask=None):
         g1, g2, g3 = self.gammas
-        labels = torch.arange(captions.shape[0], device=self.device)
         region, code = self.image_encoder(img)
         if isinstance(self.text_encoder, RNNEncoder):
             words_emb, sent_emb = self.text_encoder(
                 captions, cap_lens, keep_mask=keep_mask, generator=self.dropout_gen)
         else:
             words_emb, sent_emb = self.text_encoder(captions, cap_lens)
-        w0, w1 = words_loss(region, words_emb, labels, cap_lens, class_ids, g1, g2, g3,
-                            self.mm_dtype)
-        s0, s1 = sent_loss(code, sent_emb, labels, class_ids, g3)
+        w0, w1, s0, s1 = damsm_losses(region, code, words_emb, sent_emb, cap_lens,
+                                      class_ids, g1, g2, g3, self.mm_dtype)
         total = w0 + w1 + s0 + s1
         return total, dict(zip(LOG_KEYS, (w0, w1, s0, s1, total)))
 
     def train_step(self, img, captions, cap_lens, class_ids,
                    keep_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """One update on a batch: img (B, S, S, 3), captions (B, T), cap_lens
-        (B,) (any device), class_ids (B,) or None.  ``keep_mask`` (B, T, 300)
-        fixes the RNN encoder's embedding dropout; by default it comes from
-        the trainer's generator.  Returns the log values as 0-d tensors on
+        """One update on a batch (this rank's rows of it): img (b, S, S, 3),
+        captions (b, T), cap_lens (b,) (any device), class_ids (b,) or None.
+        ``keep_mask`` (b, T, 300) fixes the RNN encoder's embedding dropout;
+        by default it comes from the trainer's generator.  Returns the log values as 0-d tensors on
         the device."""
         self.text_encoder.train()
         self.image_encoder.train()
@@ -154,6 +160,7 @@ class DAMSMTrainer:
         self.image_opt.zero_grad(set_to_none=True)
         total, logs = self._losses(img, captions, cap_lens, class_ids, keep_mask)
         total.backward()
+        dist.all_reduce_grads_([p.grad for p in self.text_params + self.image_params])
         clip_by_global_norm_([p.grad for p in self.text_params], self.grad_clip)
         self.text_opt.step()
         self.image_opt.step()

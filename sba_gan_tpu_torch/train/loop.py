@@ -7,6 +7,11 @@ epoch, which the summary keeps), the EMA sample and attention grid every
 ``IMAGE_EVERY`` steps, a checkpoint every ``TRAIN.SNAPSHOT_INTERVAL``
 epochs and at the end, and resume from the latest checkpoint.
 
+Across ranks (:mod:`parallel.dist`) each rank trains on its rows of every
+global batch; rank 0 alone prints, renders and writes checkpoints, and
+every rank waits for each save (a barrier) and resumes from the same
+checkpoint.  Evaluation stays one process.
+
 Evaluation, with the EMA generator in eval mode (``TRAIN.FLAG`` false makes
 no ``Model``/``Image`` directory and no checkpointer):
 
@@ -38,6 +43,7 @@ import torch
 from PIL import Image
 
 from sba_gan_tpu_torch.data.pipeline import DataLoader
+from sba_gan_tpu_torch.parallel import dist
 from sba_gan_tpu_torch.train.gan import GANStep, build_models, init_gan_state, log_keys
 from sba_gan_tpu_torch.train.sample import Sampler, noise_shape
 from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
@@ -73,10 +79,12 @@ class GANTrainer:
         self.ckpt = Checkpointer(self.model_dir) if cfg.TRAIN.FLAG else None
         self.start_epoch = 0
 
-    def save_model(self, epoch: int) -> str:
-        path = self.ckpt.save(epoch, self.state.state_dict())
-        print(f"Save G/Ds models @ epoch {epoch} -> {self.model_dir}", flush=True)
-        return path
+    def save_model(self, epoch: int) -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if dist.is_main():
+            self.ckpt.save(epoch, self.state.state_dict())
+            print(f"Save G/Ds models @ epoch {epoch} -> {self.model_dir}", flush=True)
+        dist.barrier()
 
     def resume(self) -> bool:
         """Load the latest checkpoint of the output directory, if any (never
@@ -88,7 +96,8 @@ class GANTrainer:
             return False
         self.state.load_state_dict(self.ckpt.restore(epoch))
         self.start_epoch = epoch + 1
-        print(f"Resumed from epoch {epoch}", flush=True)
+        if dist.is_main():
+            print(f"Resumed from epoch {epoch}", flush=True)
         return True
 
     def train(self, max_epoch: Optional[int] = None) -> List[Dict]:
@@ -98,7 +107,9 @@ class GANTrainer:
         max_epoch = cfg.TRAIN.MAX_EPOCH if max_epoch is None else max_epoch
         loader = DataLoader(self.dataset, cfg.TRAIN.BATCH_SIZE, shuffle=True,
                             drop_last=True, seed=cfg.JAX.SEED, device=self.device,
-                            num_workers=cfg.WORKERS)
+                            num_workers=cfg.WORKERS, rank=dist.rank(),
+                            world=dist.world_size())
+        main = dist.is_main()
         n_ds = len(self.state.discriminators)
         bs = cfg.TRAIN.BATCH_SIZE
         epochs = []
@@ -112,7 +123,7 @@ class GANTrainer:
                 steps += 1
                 since_log += 1
                 gstep = self.state.step
-                if gstep % LOG_EVERY == 0:
+                if gstep % LOG_EVERY == 0 and main:
                     values = {k: float(v) for k, v in logs.items()}  # fences the window
                     ms = (time.perf_counter() - t_log) * 1e3 / since_log
                     t_log, since_log = time.perf_counter(), 0
@@ -120,11 +131,13 @@ class GANTrainer:
                     print(f"[{epoch}][{gstep}] {d_str} errG: {values['errG']:.2f} "
                           f"kl: {values['kl_loss']:.4f} | {ms:.0f} ms/batch "
                           f"{bs * 1e3 / ms:.1f} img/s", flush=True)
-                if gstep % IMAGE_EVERY == 0:
+                if gstep % IMAGE_EVERY == 0 and main:
                     self.save_img_results(batch, gstep)
             last = {k: float(logs[k]) for k in log_keys(n_ds)} if logs is not None else {}
             seconds = time.time() - t0
-            print(f"[{epoch}/{max_epoch}] {steps} steps, time: {seconds:.1f}s", flush=True)
+            if main:
+                print(f"[{epoch}/{max_epoch}] {steps} steps, time: {seconds:.1f}s",
+                      flush=True)
             epochs.append({"epoch": epoch, "steps": steps, "logs": last, "seconds": seconds})
             if (epoch + 1) % cfg.TRAIN.SNAPSHOT_INTERVAL == 0:
                 self.save_model(epoch)

@@ -9,6 +9,8 @@ import torch
 
 from sba_gan_tpu.config import cfg_from_dict as jax_cfg_from_dict
 from sba_gan_tpu.models.generator import build_generator as jax_build_generator
+from sba_gan_tpu.train.gan import init_gan_state as jax_init_gan_state
+from sba_gan_tpu.train.state import GANTrainState, NetState, gan_optimizers
 from sba_gan_tpu_torch.config import cfg_from_dict
 from sba_gan_tpu_torch.utils import weights as W
 
@@ -97,6 +99,33 @@ def flax_tree_from_port(abstract, state_dict, key_fn, path=()):
     leaf = _flax_leaf(path, state_dict[key_fn(path)])
     assert leaf.shape == tuple(abstract.shape), (path, leaf.shape, abstract.shape)
     return leaf
+
+
+def jax_gan_state(jcfg, jmodels, models, text_key) -> GANTrainState:
+    """The JAX GAN train state of ``jcfg`` holding the weights of the
+    port's ``models`` (its text encoder's paths mapped by ``text_key``),
+    with fresh optimizer states: a Flax init of these models takes a
+    minute on the CPU."""
+    abstract = jax.eval_shape(lambda: jax_init_gan_state(jcfg, jmodels,
+                                                         jax.random.PRNGKey(0)))
+    g_tx, d_tx = gan_optimizers(jcfg)
+    g_sd = models.generator.state_dict()
+    g = {c: flax_tree_from_port(getattr(abstract.g, c), g_sd, W.g_net_key)
+         for c in ("params", "batch_stats")}
+    ds = []
+    for ab, d in zip(abstract.ds, models.discriminators):
+        v = {c: flax_tree_from_port(getattr(ab, c), d.state_dict(), W.d_net_key)
+             for c in ("params", "batch_stats")}
+        ds.append(NetState(v["params"], v["batch_stats"], d_tx.init(v["params"])))
+    image_sd = models.image_encoder.state_dict()
+    return GANTrainState(
+        step=jnp.zeros((), jnp.int32),
+        g=NetState(g["params"], g["batch_stats"], g_tx.init(g["params"])),
+        g_ema=g["params"], ds=tuple(ds),
+        text={"params": flax_tree_from_port(abstract.text["params"],
+                                            models.text_encoder.state_dict(), text_key)},
+        image={c: flax_tree_from_port(abstract.image[c], image_sd, cnn_encoder_key)
+               for c in ("params", "batch_stats")})
 
 
 _RNN_KEYS = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih",

@@ -31,14 +31,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import cnn_encoder_key, flax_tree_from_port
+from _torch_parity import flax_tree_from_port, jax_gan_state
 from sba_gan_tpu.config import cfg_from_dict as jax_cfg_from_dict
 from sba_gan_tpu.models.text_bert import BertEncoder as JaxBertEncoder
 from sba_gan_tpu.train.gan import build_models as jax_build_models
 from sba_gan_tpu.train.gan import init_gan_state as jax_init_gan_state
 from sba_gan_tpu.train.gan import make_gan_train_step, make_sample_fn
 from sba_gan_tpu.train.gan import noise_shape as jax_noise_shape
-from sba_gan_tpu.train.state import GANTrainState, NetState, gan_optimizers
 from sba_gan_tpu_torch import main as gan_main
 from sba_gan_tpu_torch.config import cfg_from_dict, preset
 from sba_gan_tpu_torch.models import text_bert as tb
@@ -96,32 +95,6 @@ def jax_bert(dtype):
     return JaxBertEncoder(nef=NEF, bert_cfg=TINY_BERT, dtype=dtype)
 
 
-def jax_gan_state(jcfg, jmodels, models) -> GANTrainState:
-    """The JAX train state holding the port models' weights (a Flax init of
-    these models takes a minute on the CPU)."""
-    abstract = jax.eval_shape(lambda: jax_init_gan_state(jcfg, jmodels,
-                                                         jax.random.PRNGKey(0)))
-    g_tx, d_tx = gan_optimizers(jcfg)
-    g_sd = models.generator.state_dict()
-    g = {c: flax_tree_from_port(getattr(abstract.g, c), g_sd, W.g_net_key)
-         for c in ("params", "batch_stats")}
-    ds = []
-    for ab, d in zip(abstract.ds, models.discriminators):
-        v = {c: flax_tree_from_port(getattr(ab, c), d.state_dict(), W.d_net_key)
-             for c in ("params", "batch_stats")}
-        ds.append(NetState(v["params"], v["batch_stats"], d_tx.init(v["params"])))
-    image_sd = models.image_encoder.state_dict()
-    return GANTrainState(
-        step=jnp.zeros((), jnp.int32),
-        g=NetState(g["params"], g["batch_stats"], g_tx.init(g["params"])),
-        g_ema=g["params"], ds=tuple(ds),
-        text={"params": flax_tree_from_port(abstract.text["params"],
-                                            models.text_encoder.state_dict(),
-                                            W.bert_encoder_key)},
-        image={c: flax_tree_from_port(abstract.image[c], image_sd, cnn_encoder_key)
-               for c in ("params", "batch_stats")})
-
-
 def _jax_gan_step(mixing: bool):
     """The port's random models, one batch, and JAX's step (float64) lowered
     on the same weights and batch: (models, batch, z, eps, lowered, args)."""
@@ -136,7 +109,7 @@ def _jax_gan_step(mixing: bool):
         jcfg = jax_cfg_from_dict({**gan_cfg(mixing), "JAX": {"DTYPE": "float64"}})
         jmodels = jax_build_models(jcfg, N_WORDS)._replace(
             text_encoder=jax_bert(jnp.float64))
-        state = jax_gan_state(jcfg, jmodels, models)
+        state = jax_gan_state(jcfg, jmodels, models, W.bert_encoder_key)
         key = jax.random.PRNGKey(3)
         r_z, r_ca = jax.random.split(jax.random.fold_in(key, 0))  # the step's own draws
         z = np.asarray(jax.random.normal(r_z, jax_noise_shape(jcfg, B), jnp.float32))

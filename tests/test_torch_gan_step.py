@@ -3,7 +3,8 @@ package's ``make_gan_train_step`` over two steps, from the same weights, batch
 and noise: every log key, the gradients of the first step, the G, D and EMA
 parameters and the G and D BatchNorm running statistics after each step.
 Then, on the port alone: which DAMSM and attention paths one step takes,
-lambda 0, and the refusals of ``GRAD_ACCUM > 1``.
+lambda 0, and the state's round trip (gradient accumulation:
+tests/test_torch_grad_accum.py).
 
 Setup: BRANCH_NUM 2 (64 and 128 images), batch 4, GF/DF 8, EMBEDDING 32,
 WORDS 6, Inception input 75, gammas 4/5/10, lambda 5, Adam lr 2e-4; JAX's
@@ -53,13 +54,7 @@ from sba_gan_tpu.train.gan import noise_shape as jax_noise_shape
 from sba_gan_tpu_torch.config import cfg_from_dict
 from sba_gan_tpu_torch.ops import damsm_sim as dsim
 from sba_gan_tpu_torch.ops import word_attention as wa
-from sba_gan_tpu_torch.train.gan import (
-    GANStep,
-    GANTrainState,
-    build_models,
-    init_gan_state,
-    log_keys,
-)
+from sba_gan_tpu_torch.train.gan import GANStep, build_models, init_gan_state, log_keys
 from sba_gan_tpu_torch.utils import weights as W
 
 N_WORDS, B, T, LR, STEPS = 30, 4, 6, 2e-4, 2
@@ -330,10 +325,3 @@ def test_state_round_trip():
     for n, v in saved["g_ema"].items():
         assert torch.equal(again["g_ema"][n], v)
     assert again["g_opt"]["state"].keys() == saved["g_opt"]["state"].keys()
-
-
-def test_grad_accum_is_refused():
-    cfg = cfg_from_dict({**TINY, "TRAIN": {**TINY["TRAIN"], "GRAD_ACCUM": 2}})
-    models = build_models(cfg, N_WORDS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GANTrainState(cfg, models, device="cpu")
