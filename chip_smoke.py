@@ -126,10 +126,27 @@ and nothing of JAX.  Phases, each printing one line or more:
    ``dist_cli``, ``torchrun --standalone --nproc_per_node 1`` of ``main``
    (GRAD_ACCUM 3, batch 8, small widths: a save in the middle of a window,
    a resume that finishes it) and of ``pretrain`` (one epoch);
-19. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
+19. ``GAN.B_DCGAN`` (``configs/bird_attnDCGAN2.yml``: GDCGAN, K4 in both
+   refinement stages, one DNet256 without an unconditional head; R_NUM 0,
+   lambda 1), after the data-parallel phases, each line with its seconds;
+   the CPU's runs of its step start in a thread beside the first three:
+   ``dcgan_cli``, step 11 with that preset at batch 16 (train, save,
+   resume, render) and 2 steps on the CUB tree (``dcgan_cub_train``, one
+   256 image an item); ``serve_dcgan``, the WSGI app with
+   ``eval_bird_attnDCGAN2.yml`` and an ``.npz`` of seeded weights (the
+   JAX trees' layout, restored exactly; one generation card against CPU),
+   one ``POST /api/v1.0/bird``: one stage, two maps, K4 twice;
+   ``gan_step_dcgan``, step 9 with that preset (the same readings and
+   bounds against the CPU's float32 and float64 steps; K4 2, K1 1, K2 1, K3
+   0; one D; the mapping net's gradient finite and nonzero on both
+   devices); ``gan_bench_dcgan``, ``bench.measure`` with the preset's keys
+   at batch 30 in float32 and bfloat16 and at 128 in float32, beside step
+   10's bird_style lines;
+20. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
    K4's also in the evaluation phases, each kernel's on the BERT paths
-   under ``bert_paths`` and on the data-parallel paths under
-   ``dist_paths``), then the device JSON line last.
+   under ``bert_paths``, on the data-parallel paths under ``dist_paths``
+   and on the GAN.B_DCGAN paths under ``dcgan_paths``), then the device
+   JSON line last.
 
 Under ``JAX.DTYPE`` and ``LOSS_DTYPE`` bfloat16 (the JAX package's
 accelerator setting), beside the float32 phases: each kernel's bfloat16
@@ -724,9 +741,17 @@ def phase_serve(cfg, sampler, wordtoix, ixtoword):
 # at least 0.9991; K4's context x 1.01 reads G 2.5e-2, K2's output x 1.1
 # reads DAMSM 0.10; TF32 at most logs 1.0e-3, stats 7.8e-4, D 8.7e-2,
 # G 0.143, DAMSM 0.159.
+# The EMA against the CPU's is held past its bound (1e-3 of the parameters'
+# difference and two float32 roundings) by EMA_EXCESS, in every phase that
+# checks an EMA: the bound is a float64 subtraction, whose own rounding the
+# reading may carry (H100: 4.4e-15 in grad_accum, 7.9e-15 once in
+# gan_step_bert, 0.0 in other runs).  1e-12 is at least 100 times below one
+# float32 rounding of any parameter larger than 1e-3, so it hides no float32
+# error.
+EMA_EXCESS = 1e-12
 GAN_STEP_TOL = {"logs": 1e-3, "stats": 1e-4, "d_grads": 2e-2, "g_grads": 2e-2,
                 "damsm_img_grad": 1.5e-2, "params_agreeing_excess": 1e-3,
-                "params_adam_excess": 1e-3, "ema_excess": 0.0}
+                "params_adam_excess": 1e-3, "ema_excess": EMA_EXCESS}
 GAN_SIGN_SHARE = 0.99  # least share of parameter entries whose gradients share a sign
 GAN_TF32_TOL = {"logs": 1e-2, "stats": 1e-2, "d_grads": 0.2, "g_grads": 0.3,
                 "damsm_img_grad": 0.3}
@@ -775,7 +800,7 @@ def gan_step_inputs(seed=SEED, batch_size=8, cfg_path=None):
     random_bn_stats(models.image_encoder, torch.Generator().manual_seed(seed + 3))
     ds = SyntheticDataset(num_examples=batch_size, base_size=cfg.TREE.BASE_SIZE,
                           branch_num=cfg.TREE.BRANCH_NUM, words_num=cfg.TEXT.WORDS_NUM,
-                          n_words=N_WORDS, seed=seed)
+                          n_words=N_WORDS, b_dcgan=cfg.GAN.B_DCGAN, seed=seed)
     batch = collate([ds[i] for i in range(batch_size)])
     gen = torch.Generator().manual_seed(seed + 4)
     z = torch.randn(noise_shape(cfg, batch_size), generator=gen)
@@ -790,10 +815,11 @@ def still_ds(cfg):
     return cfg
 
 
-def gan_step_run(cfg, models, batch, z, eps, device, dtype=torch.float32):
+def gan_step_run(cfg, models, batch, z, eps, device, dtype=torch.float32, count=True):
     """One step from a copy of ``models`` on ``device`` in ``dtype``: its
     logs, gradients, parameters, running statistics, EMA and launch counts
-    (set to 0 just before the step, read just after); all on the CPU."""
+    (set to 0 just before the step, read just after; None without ``count``,
+    for a CPU step that runs beside phases that count); all on the CPU."""
     from sba_gan_tpu_torch.train.gan import GANStep, init_gan_state
 
     wrappers = _kernel_wrappers()
@@ -805,12 +831,13 @@ def gan_step_run(cfg, models, batch, z, eps, device, dtype=torch.float32):
     step = GANStep(cfg, state)
     args = ([i.to(device, dtype) for i in batch.imgs], batch.captions.to(device),
             batch.cap_lens, batch.class_ids.to(device))
-    reset_launches(wrappers)
+    if count:
+        reset_launches(wrappers)
     t0 = time.perf_counter()
     logs = step(*args, z=z.to(device, dtype), eps=eps.to(device, dtype))
     logs = {k: float(v) for k, v in logs.items()}
     seconds = time.perf_counter() - t0
-    launches = read_launches(wrappers)
+    launches = read_launches(wrappers) if count else None
     nets = {"G": state.generator, **{f"D{i}": d for i, d in enumerate(state.discriminators)}}
     grads = {f"{k}.{n}": p.grad.cpu().double() for k, m in nets.items()
              for n, p in m.named_parameters()}
@@ -890,10 +917,11 @@ def param_readings(moving, still, lr) -> dict:
             "params_max_over_lr": largest, "ema_excess": ema_excess}
 
 
-def damsm_grad_run(cfg, models, batch, device, dtype=torch.float32):
+def damsm_grad_run(cfg, models, batch, device, dtype=torch.float32, count=True):
     """The G loss's DAMSM terms alone (``GANStep.damsm_loss``) on the batch's
     final-scale images, and their gradient to those images, on ``device``
-    in ``dtype``; the kernel counts set to 0 just before, read just after."""
+    in ``dtype``; the kernel counts set to 0 just before, read just after
+    (with ``count``)."""
     from sba_gan_tpu_torch.train.gan import GANStep, init_gan_state
 
     wrappers = _kernel_wrappers()
@@ -905,19 +933,20 @@ def damsm_grad_run(cfg, models, batch, device, dtype=torch.float32):
     with torch.no_grad():
         words, sent = step.state.text_encoder(captions, batch.cap_lens)
     img = batch.imgs[-1].to(device, dtype).requires_grad_(True)
-    reset_launches(wrappers)
+    if count:
+        reset_launches(wrappers)
     w_loss, s_loss = step.damsm_loss(img, words, sent, batch.cap_lens,
                                      batch.class_ids.to(device))
     (grad,) = torch.autograd.grad(w_loss + s_loss, img)
     return dict(logs={"w_loss": float(w_loss.detach()), "s_loss": float(s_loss.detach())},
-                grad=grad.cpu().double(), launches=read_launches(wrappers))
+                grad=grad.cpu().double(), launches=read_launches(wrappers) if count else None)
 
 
 def gan_step_readings(cfg, runs) -> dict:
     """Card against CPU from the runs of :func:`gan_step_runs`."""
     from sba_gan_tpu_torch.train.gan import log_keys
 
-    keys = log_keys(cfg.TREE.BRANCH_NUM)
+    keys = log_keys(sum(k.startswith("errD") for k in runs["cpu"]["logs"]))
     gpu, cpu = runs["cuda"], runs["cpu"]
     stats = [n for n in cpu["tensors"] if n.endswith(("running_mean", "running_var"))]
     lr = max(cfg.TRAIN.GENERATOR_LR, cfg.TRAIN.DISCRIMINATOR_LR)
@@ -966,12 +995,32 @@ def gan_step_failures(r) -> list:
     return bad
 
 
-def gan_step_runs(seed=SEED, batch_size=8, cfg_path=None):
-    """From one set of inputs: the step on the card and on the CPU (float32,
-    TF32 off), the same with the Ds held still, the CPU's still step in
-    float64, and the card's still step at the bench's precision (GAN_TF32);
-    the DAMSM terms' image gradient (``damsm``) the same four ways."""
-    cfg, models, batch, z, eps = gan_step_inputs(seed, batch_size, cfg_path)
+def gan_step_cpu_runs(inputs, count=True):
+    """The CPU's runs of :func:`gan_step_runs` from ``inputs`` (those of
+    :func:`gan_step_inputs`): the step in float32, the still-D step in
+    float32 and float64, and the DAMSM terms' image gradient in float32 and
+    float64; (runs, damsm runs).  Without ``count`` the launches are not
+    counted, so that they can run in a thread beside phases that count."""
+    cfg, models, batch, z, eps = inputs
+    still = still_ds(cfg)
+
+    def run(c, dtype=torch.float32):
+        return gan_step_run(c, models, batch, z, eps, "cpu", dtype, count)
+    runs = {"cpu": run(cfg), "cpu_still": run(still), "cpu64_still": run(still, torch.float64)}
+    dm = {"cpu": damsm_grad_run(cfg, models, batch, "cpu", count=count),
+          "cpu64": damsm_grad_run(cfg, models, batch, "cpu", torch.float64, count)}
+    return runs, dm
+
+
+def gan_step_runs(seed=SEED, batch_size=8, cfg_path=None, inputs=None, cpu=None):
+    """From one set of inputs (``inputs``, else made from ``seed``): the step
+    on the card and on the CPU (float32, TF32 off), the same with the Ds held
+    still, the CPU's still step in float64, and the card's still step at the
+    bench's precision (GAN_TF32); the DAMSM terms' image gradient
+    (``damsm``) the same four ways.  ``cpu``: the CPU's runs, made already
+    (:func:`gan_step_cpu_runs` of these inputs)."""
+    inputs = inputs or gan_step_inputs(seed, batch_size, cfg_path)
+    cfg, models, batch, z, eps = inputs
     still = still_ds(cfg)
 
     def run(c, device, dtype=torch.float32):
@@ -980,10 +1029,11 @@ def gan_step_runs(seed=SEED, batch_size=8, cfg_path=None):
     def damsm(device, dtype=torch.float32):
         return damsm_grad_run(cfg, models, batch, device, dtype)
     with tf32(cudnn=False, matmul=False):
-        runs = {"cuda": run(cfg, "cuda"), "cpu": run(cfg, "cpu"),
-                "cuda_still": run(still, "cuda"), "cpu_still": run(still, "cpu"),
-                "cpu64_still": run(still, "cpu", torch.float64)}
-        dm = {"cuda": damsm("cuda"), "cpu": damsm("cpu"), "cpu64": damsm("cpu", torch.float64)}
+        runs = {"cuda": run(cfg, "cuda"), "cuda_still": run(still, "cuda")}
+        dm = {"cuda": damsm("cuda")}
+    cpu_runs, cpu_dm = cpu or gan_step_cpu_runs(inputs)
+    runs.update(cpu_runs)
+    dm.update(cpu_dm)
     with tf32(**GAN_TF32):
         runs["cuda_tf32_still"] = run(still, "cuda")
         dm["cuda_tf32"] = damsm("cuda")
@@ -1000,18 +1050,20 @@ def gan_step_f64_runs(seed=SEED, batch_size=8):
             "damsm": {"cpu64": damsm_grad_run(cfg, models, batch, "cpu", torch.float64)}}
 
 
-def phase_gan_step(batch_size=8, cfg_path=None, phase="gan_step"):
+def phase_gan_step(batch_size=8, cfg_path=None, phase="gan_step", inputs=None, cpu=None):
     """One full-width GAN train step (bird_style, or the preset
-    ``cfg_path``) on the card against the CPU (:func:`gan_step_runs`), held
-    to the bounds above; the card's launches in each of its steps: K4
-    twice, K1 and K2 once, K3 never; K1 and K2 once in the DAMSM terms
-    alone."""
-    cfg, runs = gan_step_runs(SEED, batch_size, cfg_path)
+    ``cfg_path``) on the card against the CPU (:func:`gan_step_runs`, with
+    its ``inputs`` and ``cpu``), held to the bounds above; the card's
+    launches in each of its steps: K4 twice, K1 and K2 once, K3 never; K1
+    and K2 once in the DAMSM terms alone (a CPU run counted, none)."""
+    t0 = time.perf_counter()
+    cfg, runs = gan_step_runs(SEED, batch_size, cfg_path, inputs, cpu)
     r = gan_step_readings(cfg, runs)
     dm = runs.pop("damsm")
     say(phase, batch=batch_size, words_num=cfg.TEXT.WORDS_NUM,
         text_encoder=cfg.MODEL.TEXT_ENCODER, m_num=cfg.GAN.M_NUM,
-        init_z_concat=cfg.GAN.INIT_Z_CONCAT,
+        init_z_concat=cfg.GAN.INIT_Z_CONCAT, b_dcgan=cfg.GAN.B_DCGAN, r_num=cfg.GAN.R_NUM,
+        smooth_lambda=cfg.TRAIN.SMOOTH.LAMBDA, seconds=time.perf_counter() - t0,
         logs_cuda=runs["cuda"]["logs"], logs_cpu=runs["cpu"]["logs"],
         damsm_logs={k: v["logs"] for k, v in dm.items()}, readings=r,
         tol={**GAN_STEP_TOL, "params_sign_share_above": GAN_SIGN_SHARE,
@@ -1028,7 +1080,7 @@ def phase_gan_step(batch_size=8, cfg_path=None, phase="gan_step"):
     for k, run in list(runs.items()) + [(f"damsm_{k}", v) for k, v in dm.items()]:
         want = ((damsm_only if k.startswith("damsm") else GAN_STEP_LAUNCHES)
                 if "cuda" in k else none)
-        if run["launches"] != want:
+        if run["launches"] is not None and run["launches"] != want:
             raise AssertionError(f"{phase} {k}: launches {run['launches']} (want {want})")
     return runs["cuda"]["launches"], {**runs, "damsm": dm}
 
@@ -1084,6 +1136,7 @@ def phase_gan_cli(damsm_model_dir, out, batch_size=32, cfg_path=None, name="gan"
     argv = ["--cfg", yml, "--synthetic", "--output_dir", os.path.join(out, name)]
     wrappers = _kernel_wrappers()
     calls = []
+    t_phase = time.perf_counter()
     for max_epoch in (1, 2):
         for fn in wrappers.values():
             fn.launches = 0
@@ -1114,7 +1167,8 @@ def phase_gan_cli(damsm_model_dir, out, batch_size=32, cfg_path=None, name="gan"
     say(f"{name}_cli", text_encoder=cfg.MODEL.TEXT_ENCODER, batch=batch_size,
         calls=[{k: v for k, v in c.items()} for c in calls],
         checkpoints=ckpt.steps(), checkpoint_step=saved["step"],
-        encoders_from_net_e=encoders_kept, resumed_on_card=resumed, images=pngs)
+        encoders_from_net_e=encoders_kept, resumed_on_card=resumed, images=pngs,
+        seconds=time.perf_counter() - t_phase)
     want_steps = len(ds) // batch_size
     ok = (finite and encoders_kept and resumed and ckpt.steps() == [0, 1]
           and saved["step"] == 2 * want_steps
@@ -1264,26 +1318,26 @@ def _yaml_cfg(path, out, **top):
     return out
 
 
-def phase_cub_train(root, out):
-    """``main.main`` with bird_style on the CUB-layout tree (not synthetic):
-    batch 16, 4 reader threads, one epoch = 2 steps, the kernel counts set
-    to 0 just before."""
+def phase_cub_train(root, out, cfg_path=GAN_CFG, name="cub_train"):
+    """``main.main`` with bird_style (or the preset ``cfg_path``) on the
+    CUB-layout tree (not synthetic): batch 16, 4 reader threads, one epoch =
+    2 steps, the kernel counts set to 0 just before."""
     from sba_gan_tpu_torch import main as gan_main
 
-    yml = _yaml_cfg(GAN_CFG, os.path.join(out, "cub_train.yml"), WORKERS=4,
+    yml = _yaml_cfg(cfg_path, os.path.join(out, f"{name}.yml"), WORKERS=4,
                     TRAIN={"BATCH_SIZE": EVAL_BATCH})
     wrappers = _kernel_wrappers()
     reset_launches(wrappers)
     t0 = time.perf_counter()
     summary = gan_main.main(["--cfg", yml, "--data_dir", root, "--max_epoch", "1",
-                             "--output_dir", os.path.join(out, "cub_train")])
+                             "--output_dir", os.path.join(out, name)])
     seconds = time.perf_counter() - t0
     launches = read_launches(wrappers)
     (epoch,) = summary["epochs"]
     steps = CUB_TRAIN // EVAL_BATCH
     want = {k: n * steps for k, n in GAN_STEP_LAUNCHES.items()}
     finite = all(np.isfinite(v) for v in epoch["logs"].values())
-    say("cub_train", steps=epoch["steps"], logs=epoch["logs"], launches=launches,
+    say(name, steps=epoch["steps"], logs=epoch["logs"], launches=launches,
         seconds=seconds)
     if not (finite and epoch["steps"] == steps and launches == want):
         raise AssertionError(f"GAN training on the CUB tree: steps {epoch['steps']}, "
@@ -2231,10 +2285,6 @@ def phase_bert_cli(out, batch_size=32):
 # ---------------------------------------------------------------------------
 PRETRAIN_DIST_BATCH = 8
 ACCUM_MODES = ("window", "dfresh")
-# the EMA against the CPU's float64 one: past its bound (1e-3 of the
-# parameters' gap and two float32 roundings) by no more than the float64
-# rounding of that bound (measured 4.4e-15 on the H100)
-ACCUM_EMA_EXCESS = 1e-12
 # a world of one over NCCL against no group: bit-identical unless the card's
 # own run-to-run spread (the CONTROL run, no group again) is not 0; then
 # within DIST1_SPREAD times that spread
@@ -2406,9 +2456,7 @@ def phase_grad_accum(inputs, cpu):
         readings[mode] = r
         launches[mode] = [c["launches"] for c in card]
         bad = [k for k in ("logs", "stats", "d_grads", "g_grads", "params_agreeing_excess",
-                           "params_adam_excess") if not r[k] <= GAN_STEP_TOL[k]]
-        if not r["ema_excess"] <= ACCUM_EMA_EXCESS:
-            bad.append("ema_excess")
+                           "params_adam_excess", "ema_excess") if not r[k] <= GAN_STEP_TOL[k]]
         if not r["params_sign_share"] > GAN_SIGN_SHARE:
             bad.append("params_sign_share")
         if not (g_still and ema_still and g_moved and cadence
@@ -2420,8 +2468,7 @@ def phase_grad_accum(inputs, cpu):
     say("grad_accum", batch=batch_size, grad_accum=2, logs_card={
         m: [c["logs"] for c in runs[m][1]] for m in ACCUM_MODES},
         logs_cpu64=[c["logs"] for c in cpu], readings=readings, launches=launches,
-        tol={**GAN_STEP_TOL, "ema_excess": ACCUM_EMA_EXCESS,
-             "params_sign_share_above": GAN_SIGN_SHARE},
+        tol={**GAN_STEP_TOL, "params_sign_share_above": GAN_SIGN_SHARE},
         seconds=time.perf_counter() - t0)
     if failures:
         raise AssertionError(f"grad_accum: {failures}")
@@ -2834,6 +2881,240 @@ def phase_dist_cli(out, batch_size=8, accum=3, device="cuda"):
         raise AssertionError(f"dist_cli: {found} (want {want})")
 
 
+# ---------------------------------------------------------------------------
+# GAN.B_DCGAN (configs/bird_attnDCGAN2.yml): GDCGAN, with K4 in both
+# refinement stages, and its one discriminator at the final scale; the step
+# against the CPU, the bench lines, the CLI and the service
+# ---------------------------------------------------------------------------
+DCGAN_CFG = os.path.join(CONFIGS, "bird_attnDCGAN2.yml")
+DCGAN_EVAL_CFG = os.path.join(CONFIGS, "eval_bird_attnDCGAN2.yml")
+DCGAN_BENCH = (("float32", 30), ("bfloat16", 30), ("float32", 128))  # (dtype, batch)
+_FLAX_BN = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+_FLAX_DENSE = {"weight": "kernel", "bias": "bias"}
+_FLAX_CONV = ("Conv_0", "kernel")
+_FLAX_RNN = {"weight_ih": "w_ih", "weight_hh": "w_hh", "bias_ih": "b_ih", "bias_hh": "b_hh"}
+
+
+def flax_g_path(key: str) -> tuple:
+    """The Flax GDCGAN path of one port key (the inverse of
+    ``utils.weights.g_net_key(path, dcgan=True)``)."""
+    p = key.split(".")
+    bn = ("BatchNorm_0", _FLAX_BN.get(p[-1]))
+    dense = _FLAX_DENSE.get(p[-1])
+    if p[0] == "ca_net":
+        return ("CANet_0", "Dense_0", dense)
+    if p[0] == "mapping_net":
+        return ("MappingNet_0", f"Dense_{p[2]}", "kernel")
+    if p[0] == "img_net":
+        return ("GetImageG_0", "Conv3x3_0") + _FLAX_CONV
+
+    def up(prefix, idx):  # an up block's conv (1) or BatchNorm (2)
+        return prefix + (("Conv3x3_0",) + _FLAX_CONV if idx == "1" else ("BatchNorm_0",) + bn)
+    if p[0] == "h_net1":
+        if p[1] == "fc":
+            return (("InitStageG_0", "Dense_0", "kernel") if p[2] == "0"
+                    else ("InitStageG_0", "BatchNorm_0") + bn)
+        return up(("InitStageG_0", f"UpBlock_{int(p[1][len('upsample'):]) - 1}"), p[2])
+    stage = (f"NextStageG_{int(p[0][len('h_net'):]) - 2}",)
+    if p[1] == "att":
+        return stage + ("WordAttention_0", "Dense_0", "kernel")
+    if p[1] == "adain":
+        return stage + ("AdaINNorm_0", "Dense_0", dense)
+    if p[1] == "residual":
+        sub = {"0": "Conv3x3_0", "1": "BatchNorm_0", "3": "Conv3x3_1", "4": "BatchNorm_1"}[p[4]]
+        return stage + (f"ResBlock_{p[2]}", sub) + (_FLAX_CONV if sub[0] == "C" else bn)
+    return up(stage + ("UpBlock_0",), p[2])
+
+
+def flax_text_path(key: str) -> tuple:
+    """The Flax RNNEncoder path of one port key."""
+    if key == "encoder.weight":
+        return ("embedding",)
+    name, suffix = key[len("rnn."):].split("_l0")
+    return ("bwd" if suffix == "_reverse" else "fwd", _FLAX_RNN[name])
+
+
+def write_dcgan_npz(cfg, path):
+    """A serving weights file (``utils/weights.py``: ``g_ema/...``,
+    ``g/batch_stats/...``, ``text/params/...``, the JAX trees' layout) of
+    ``cfg``'s seeded GDCGAN (random running statistics) and text encoder,
+    written through the inverse of the port's key map: conv kernels OIHW ->
+    HWIO, dense (out, in) -> (in, out).  Returns the seeded CPU sampler."""
+    from sba_gan_tpu_torch.train.sample import Sampler
+
+    cpu = Sampler.from_config(cfg, N_WORDS, seed=SEED, device="cpu")
+    random_bn_stats(cpu.generator, torch.Generator().manual_seed(SEED + 1))
+    arrays = {}
+    for n, t in cpu.generator.state_dict().items():
+        if n.endswith("num_batches_tracked"):
+            continue
+        fpath = flax_g_path(n)
+        v = t.numpy()
+        if fpath[-1] == "kernel":
+            v = np.transpose(v, (2, 3, 1, 0)) if v.ndim == 4 else v.T
+        coll = "g/batch_stats" if n.endswith(("running_mean", "running_var")) else "g_ema"
+        arrays["/".join((coll,) + fpath)] = np.ascontiguousarray(v)
+    for n, t in cpu.text_encoder.state_dict().items():
+        arrays["/".join(("text", "params") + flax_text_path(n))] = t.numpy()
+    np.savez(path, **arrays)
+    return cpu
+
+
+def phase_serve_dcgan(wordtoix, ixtoword, out):
+    """The WSGI app with ``eval_bird_attnDCGAN2.yml`` and an ``.npz`` of
+    seeded weights (:func:`write_dcgan_npz`), as ``serving/app.py --cfg
+    ... --weights`` builds it on the card: the file restores the seeded
+    weights exactly; one generation card against CPU from it (TF32 off,
+    SLICE_ATOL); then, with K4's count set to 0 just before, one ``POST
+    /api/v1.0/bird`` gives one stage (``small``, 256 x 256) and two maps,
+    and launches K4 exactly twice."""
+    from PIL import Image
+
+    from sba_gan_tpu_torch.config import cfg_from_file
+    from sba_gan_tpu_torch.data.vocab import encode_free_text
+    from sba_gan_tpu_torch.ops import word_attention as wa
+    from sba_gan_tpu_torch.serving.app import build_service, make_wsgi_app
+    from sba_gan_tpu_torch.train.sample import Sampler
+
+    t0 = time.perf_counter()
+    cfg = cfg_from_file(DCGAN_EVAL_CFG)
+    npz = os.path.join(out, "dcgan_weights.npz")
+    seeded = write_dcgan_npz(cfg, npz)
+    cpu = Sampler.from_config(cfg, N_WORDS, weights=npz, device="cpu")
+    restored = all(torch.equal(a, b) for m, n in (("generator", "generator"),
+                                                  ("text_encoder", "text_encoder"))
+                   for a, b in zip(getattr(seeded, m).state_dict().values(),
+                                   getattr(cpu, n).state_dict().values()))
+    gpu = Sampler.from_config(cfg, N_WORDS, weights=npz, device="cuda")
+    caption = "w17 w4031 w9 w250 w77 w3 w1200 w88"
+    ids, lens = encode_free_text([caption], wordtoix, cfg.TEXT.WORDS_NUM)
+    z, eps = cpu.draw_noise(1, SEED)
+    with tf32(cudnn=False, matmul=False):
+        got = gpu.with_noise(ids, lens, z, eps)
+    want = cpu.with_noise(ids, lens, z, eps)
+    errs = [float(np.abs(g - c).max()) for g, c in zip(sum(got, []), sum(want, []))]
+    shapes = [list(a.shape) for a in sum(got, [])]
+
+    events = []
+    with tempfile.TemporaryDirectory() as blobs:
+        app = make_wsgi_app(build_service(cfg, gpu, wordtoix, ixtoword, blobs,
+                                          telemetry=events.append))
+
+        def call(method, path, body=b""):
+            status = {}
+            environ = {"REQUEST_METHOD": method, "PATH_INFO": path,
+                       "CONTENT_LENGTH": str(len(body)), "wsgi.input": io.BytesIO(body)}
+            payload = b"".join(app(environ, lambda st, h: status.setdefault("s", st)))
+            return status["s"], payload
+        wa.word_attention.launches = 0
+        t1 = time.perf_counter()
+        status, payload = call("POST", "/api/v1.0/bird",
+                               json.dumps({"caption": caption, "seed": 3}).encode())
+        ms = (time.perf_counter() - t1) * 1e3
+        launches = wa.word_attention.launches
+        bird = json.loads(payload)["bird"]
+        labels = sorted(k for k in bird if k not in ("caption", "elapsed"))
+        images = {}
+        for label in labels:
+            st, img = call("GET", bird[label])
+            images[label] = [st, list(Image.open(io.BytesIO(img)).size)]
+    say("serve_dcgan", cfg="eval_bird_attnDCGAN2.yml", weights_restored=restored,
+        card_vs_cpu_max_abs_err=errs, atol=SLICE_ATOL, shapes=shapes, status=status,
+        labels=labels, images=images, launches={"word_attention": launches},
+        latency_ms=ms, phases=[e["phases"] for e in events if e.get("event") == "generate"],
+        seconds=time.perf_counter() - t0)
+    ok = (restored and all(e <= SLICE_ATOL for e in errs) and status == "201 Created"
+          and labels == ["map1", "map2", "small"] and images["small"] == ["200 OK", [256, 256]]
+          and all(v[0] == "200 OK" for v in images.values()) and launches == 2)
+    if not ok:
+        raise AssertionError(f"serve_dcgan: restored {restored}, errors {errs}, {status}, "
+                             f"labels {labels}, images {images}, K4 launches {launches}")
+    return {"word_attention": launches}
+
+
+def phase_dcgan_cli(damsm_model_dir, out, cub_root):
+    """``main.main`` with bird_attnDCGAN2 at batch 16 on synthetic data with
+    the pretrain CLI's encoders (train, save, resume, render, kernel counts
+    per step: :func:`phase_gan_cli`), and 2 steps on the CUB tree
+    (:func:`phase_cub_train`), whose items the ``b_dcgan`` reader gives as
+    one 256 image."""
+    from sba_gan_tpu_torch.config import cfg_from_file
+    from sba_gan_tpu_torch.data.pipeline import build_dataset
+
+    calls = phase_gan_cli(damsm_model_dir, out, EVAL_BATCH, DCGAN_CFG, "dcgan")
+    cfg = cfg_from_file(DCGAN_CFG)
+    cfg.DATA_DIR = cub_root
+    shapes = [list(i.shape) for i in build_dataset(cfg, False, "train")[0][0]]
+    if shapes != [[256, 256, 3]]:
+        raise AssertionError(f"dcgan_cli: the b_dcgan reader gave images {shapes}")
+    cub = phase_cub_train(cub_root, out, DCGAN_CFG, "dcgan_cub_train")
+    return [c["launches"] for c in calls], cub
+
+
+def phase_gan_step_dcgan(inputs, cpu, batch_size=8):
+    """:func:`phase_gan_step` on bird_attnDCGAN2 (R_NUM 0, lambda 1;
+    WORDS_NUM 18, batch 8), the same bounds, with the CPU's runs
+    (``cpu``, a future of :func:`gan_step_cpu_runs` of ``inputs``, made
+    beside earlier phases); one D, DNet256 without ``UNCOND_DNET``; the
+    mapping net's gradient finite and nonzero on the card and on the CPU
+    (its w code styles both refinement stages through AdaIN)."""
+    t0 = time.perf_counter()
+    ds = inputs[1].discriminators
+    launches, runs = phase_gan_step(batch_size, DCGAN_CFG, "gan_step_dcgan", inputs,
+                                    cpu.result())
+    mapping = {k: float(torch.sqrt(sum((g ** 2).sum() for n, g in runs[k]["grads"].items()
+                                       if n.startswith("G.mapping_net."))))
+               for k in ("cuda", "cpu", "cuda_still", "cpu_still", "cpu64_still")}
+    heads = [[type(d).__name__, d.UNCOND_DNET is not None] for d in ds]
+    say("gan_step_dcgan", discriminators_and_uncond_head=heads,
+        mapping_net_grad_norm=mapping, seconds=time.perf_counter() - t0)
+    if heads != [["DNet256", False]] or not all(np.isfinite(v) and v > 0
+                                                for v in mapping.values()):
+        raise AssertionError(f"gan_step_dcgan: discriminators {heads}, mapping net "
+                             f"gradient norms {mapping}")
+    return launches
+
+
+def phase_gan_bench_dcgan(style_lines):
+    """``bench.measure`` (no phase split or FLOP count) with the
+    bird_attnDCGAN2 keys (R_NUM 0, lambda 1, one D; WORDS_NUM 18) at batch
+    30 in float32 and bfloat16 and at batch 128 in float32, beside the
+    bird_style lines of this call (``style_lines``): images/s, ms a step,
+    device ms and launches a step, idle share, peak memory; K4 2, K1 1, K2 1
+    a step."""
+    from sba_gan_tpu_torch import bench
+    from sba_gan_tpu_torch.config import cfg_from_file
+
+    t0 = time.perf_counter()
+    lines, bad = {}, []
+    for dtype, batch in DCGAN_BENCH:
+        cfg = cfg_from_file(DCGAN_CFG)
+        cfg.TEXT.WORDS_NUM = bench.FLAGSHIP["TEXT"]["WORDS_NUM"]
+        cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = dtype
+        label = f"{dtype}_b{batch}"
+        lines[label] = _bench_summary(bench.measure(cfg, batch, torch.device("cuda"),
+                                                    detail=False))
+        gc.collect()
+        torch.cuda.empty_cache()
+        line = lines[label]
+        if not line["finite"] or line["kernel_launches_per_step"] != GAN_STEP_LAUNCHES:
+            bad.append(f"{label}: finite {line['finite']}, "
+                       f"launches {line['kernel_launches_per_step']}")
+    style = {dtype: {"batch": ln["batch"], "images_per_sec": ln["value"],
+                     "device_ms_per_step": ln["profile"]["device_ms_per_step"],
+                     "launches_per_step": ln["profile"]["launches_per_step"],
+                     "device_idle_share": ln["profile"]["device_idle_share"],
+                     "peak_memory_bytes": ln["peak_memory_bytes"]}
+             for dtype, ln in style_lines.items()}
+    say("gan_bench_dcgan", lines=lines, bird_style=style,
+        tf32={"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+              "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32},
+        seconds=time.perf_counter() - t0)
+    if bad:
+        raise AssertionError(f"gan_bench_dcgan: {bad}")
+    return {k: v["kernel_launches_per_step"] for k, v in lines.items()}
+
+
 DAMSM_KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     "damsm_sim_fwd": ("sba_gan_tpu_torch/ops/csrc/damsm_sim.cu",
                       "sba_gan_tpu/ops/damsm_sim.py:157"),
@@ -2897,13 +3178,29 @@ def main() -> int:
             nccl1_launches = phase_dist_nccl1()
             accum_launches = phase_grad_accum(inputs, cpu_window.result())
         bench_dist_launches = phase_gan_bench_dist(style_lines["float32"])
-        phase_dist_cli(out)
+        with ThreadPoolExecutor(1) as pool:  # the DCGAN step's CPU runs beside four phases
+            dcgan_inputs = gan_step_inputs(SEED, 8, DCGAN_CFG)
+            dcgan_cpu = pool.submit(gan_step_cpu_runs, dcgan_inputs, False)
+            phase_dist_cli(out)
+            dcgan_cli_launches, dcgan_cub_launches = phase_dcgan_cli(
+                os.path.join(out, "damsm", "Model"), out, tree)
+            dcgan_serve_launches = phase_serve_dcgan(wordtoix, ixtoword, out)
+            dcgan_step_launches = phase_gan_step_dcgan(dcgan_inputs, dcgan_cpu)
+            del dcgan_inputs, dcgan_cpu
+        dcgan_bench_launches = phase_gan_bench_dcgan(style_lines)
     dist_paths = {  # each kernel's launches on the data-parallel and accumulation paths
         k: {"grad_accum_micro_steps": {m: [c[k] for c in v] for m, v in accum_launches.items()},
             "nccl_world_of_one_3_steps_float32": nccl1_launches["float32"][k],
             "nccl_world_of_one_1_step_bfloat16": nccl1_launches["bfloat16"][k],
             "gloo_2_ranks_per_rank": [{p: r[p][k] for p in r} for r in gloo2_launches],
             "bench_dist_per_step": {b: v[k] for b, v in bench_dist_launches.items()}}
+        for k in GAN_KERNELS}
+    dcgan_paths = {  # each kernel's launches on the GAN.B_DCGAN paths
+        k: {"dcgan_gan_step": dcgan_step_launches[k],
+            "dcgan_bench_step": {b: v[k] for b, v in dcgan_bench_launches.items()},
+            "dcgan_cli_calls": [c[k] for c in dcgan_cli_launches],
+            "dcgan_cub_train_2_steps": dcgan_cub_launches[k],
+            "dcgan_serve_generation": dcgan_serve_launches.get(k, 0)}
         for k in GAN_KERNELS}
     bert_paths = {  # each kernel's launches on the BERT paths
         k: {"bird_bert_gan_step": bert_gan_launches[k],
@@ -2944,6 +3241,7 @@ def main() -> int:
         "reproduce_launches": reproduce_launches,
         "bert_paths": bert_paths["word_attention"],
         "dist_paths": dist_paths["word_attention"],
+        "dcgan_paths": dcgan_paths["word_attention"],
     }]
     for kname, (source, replaces) in DAMSM_KERNELS.items():
         row, gan = damsm_rows["pretrain"][kname], damsm_rows["gan_step"][kname]
@@ -2962,6 +3260,7 @@ def main() -> int:
                                              "bound_tc_ms")},
             "bert_paths": bert_paths[kname],
             "dist_paths": dist_paths[kname],
+            "dcgan_paths": dcgan_paths[kname],
         })
     row16, gan_rows16 = rows16
     kernels.append({
@@ -2975,6 +3274,8 @@ def main() -> int:
         "library_ms": row16["library_ms"], "shape": row16["shape"],
         "eager_ms": row16["eager_ms"], "generation_launches": launches16["word_attention"],
         "gan_step": [{k: r[k] for k in gan_keys} for r in gan_rows16],
+        "dcgan_paths": {"dcgan_bench_step_bfloat16_b30":
+                        dcgan_bench_launches["bfloat16_b30"]["word_attention"]},
     })
     for kname, (source, replaces) in DAMSM_KERNELS.items():
         row, gan = damsm_rows16["pretrain"][kname], damsm_rows16["gan_step"][kname]
@@ -2992,6 +3293,8 @@ def main() -> int:
             "gan_step_launches": gan_launches16[kname],
             "gan_step": {k: gan[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
                                              "bound_by", "eager_ms", "max_abs_err")},
+            "dcgan_paths": {"dcgan_bench_step_bfloat16_b30":
+                            dcgan_bench_launches["bfloat16_b30"][kname]},
         })
     print(smi, flush=True)  # again, near the end, beside the numbers above
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,10 +18,16 @@ documents: across ranks the BatchNorm statistics are the global batch's
 whatever it says (:mod:`parallel.dist`).  The other ``JAX`` keys and the ``BENCH`` group
 are accepted so that presets carrying them still load, and have no effect
 here.  In particular ``DAMSM_SIM_IMPL``, ``DAMSM_SIM_TILE``,
-``DAMSM_GRID_CHUNKS``, ``DAMSM_FOLD_SOFTMAX``, ``DAMSM_CHUNKS``,
-``USE_PALLAS`` and ``REMAT_IMAGE_ENCODER*`` are XLA/TPU levers that give
-the same values: which implementation runs is decided by the device of the
-tensors (CUDA kernel on the card, plain PyTorch on the CPU), not by a key.
+``DAMSM_GRID_CHUNKS``, ``DAMSM_FOLD_SOFTMAX``, ``USE_PALLAS`` and
+``REMAT_IMAGE_ENCODER*`` are XLA/TPU levers that give the same values:
+which implementation runs is decided by the device of the tensors (CUDA
+kernel on the card, plain PyTorch on the CPU), not by a key.
+``DAMSM_CHUNKS`` gives the same values in the GAN step only, whose
+Inception is frozen in eval mode, so the GAN step accepts it; in DAMSM
+pretraining the JAX package runs the train-mode Inception over that many
+sequential sub-batches, whose BatchNorm statistics differ from one pass,
+and the port's ``DAMSMTrainer`` raises ``NotImplementedError`` for a value
+above 1 (not ported; ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations

@@ -19,7 +19,10 @@ imported: its load raises (ROADMAP.md, section 3).  Under
 pretrain checkpoint.
 ``TRAIN.NET_G`` names a reference ``netG*.pth`` (EMA weights).  Empty:
 random weights.  deviation: a named path that does not exist raises (the
-JAX package skips it).
+JAX package skips it).  Under ``GAN.B_DCGAN`` (``bird_attnDCGAN2.yml``:
+GDCGAN and its one discriminator) a ``TRAIN.NET_G`` raises
+``NotImplementedError``: a reference G_DCGAN is not imported, by either
+package; training, saving and resuming need none.
 
 ``MODEL.TEXT_ENCODER`` picks the vocabulary: the data set's word ids for
 ``rnn``, BERT's wordpieces (``data/vocab.py``) for ``bert``, in the caption
@@ -38,6 +41,8 @@ Usage (on the card; ``--device cpu`` runs on the CPU):
         --cfg sba_gan_tpu_torch/configs/bird_style.yml --synthetic --max_epoch 1
     python -m sba_gan_tpu_torch.main \\
         --cfg sba_gan_tpu_torch/configs/bird_bert.yml --synthetic --max_epoch 1
+    python -m sba_gan_tpu_torch.main \\
+        --cfg sba_gan_tpu_torch/configs/bird_attnDCGAN2.yml --synthetic --max_epoch 1
     python -m sba_gan_tpu_torch.main \\
         --cfg sba_gan_tpu_torch/configs/eval_bird.yml --data_dir data/birds
 """
@@ -148,6 +153,10 @@ def _run(args, cfg, device) -> Dict:
     dataset = build_dataset(cfg, args.synthetic, "train" if cfg.TRAIN.FLAG else "test")
     text_state, image_state, net_e_text = load_net_e(cfg.TRAIN.NET_E)
     net_g = cfg.TRAIN.NET_G
+    if net_g and cfg.GAN.B_DCGAN:
+        from sba_gan_tpu_torch.utils.torch_port import refuse_dcgan_net_g
+
+        refuse_dcgan_net_g(net_g)
     if net_g and not os.path.isfile(net_g):
         raise FileNotFoundError(f"TRAIN.NET_G {net_g} does not exist")
 

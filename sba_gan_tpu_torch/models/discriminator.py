@@ -114,12 +114,10 @@ class DNet256(_DNet):
 
 
 def build_discriminators(cfg) -> List[_DNet]:
-    """One discriminator per branch, computing in ``JAX.DTYPE`` (GDCGAN's
-    single one is not ported yet)."""
-    if cfg.GAN.B_DCGAN:
-        raise NotImplementedError(
-            "GAN.B_DCGAN (G_DCGAN and its one discriminator) is not ported yet "
-            "(ROADMAP.md, queue 1, item 1)")
+    """One discriminator per branch, computing in ``JAX.DTYPE``; under
+    ``GAN.B_DCGAN`` one, at the final scale, without ``UNCOND_DNET``."""
     ndf, nef = cfg.GAN.DF_DIM, cfg.TEXT.EMBEDDING_DIM
     klass = (DNet64, DNet128, DNet256)
+    if cfg.GAN.B_DCGAN:
+        return [klass[cfg.TREE.BRANCH_NUM - 1](ndf, nef, b_jcu=False, dtype=compute_dtype(cfg))]
     return [klass[i](ndf, nef, dtype=compute_dtype(cfg)) for i in range(cfg.TREE.BRANCH_NUM)]

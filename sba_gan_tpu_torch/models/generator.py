@@ -7,17 +7,21 @@
 * :class:`GNet` — CA net + mapping net + up to three branches; with
   ``style_mixing`` z is (2, B, Z) and the two w codes feed stage 2 and
   stage 3.
+* :class:`GDCGAN` — ``GAN.B_DCGAN``: the same trunk (one w code styles
+  every refinement stage through its AdaIN) and one image, at the last
+  stage.
 
-Submodule names follow the reference G_NET state-dict keys (``ca_net``,
-``mapping_net.fc.N``, ``h_net1.fc``, ``h_net1.upsampleK``, ``img_netI.img``,
-``h_netJ.{att, adain, residual, upsample}``).  ``GNet.forward`` takes and
+Submodule names follow the reference G_NET / G_DCGAN state-dict keys
+(``ca_net``, ``mapping_net.fc.N``, ``h_net1.fc``, ``h_net1.upsampleK``,
+``img_netI.img`` or G_DCGAN's one ``img_net.img``,
+``h_netJ.{att, adain, residual, upsample}``).  ``forward`` takes and
 returns the JAX package's layouts: images (B, S, S, 3), maps (B, H, W, T).
 
-``GNet(dtype=...)`` is the JAX package's ``GNet(dtype=...)``: the
-parameters stay float32, the convolutions and linears compute in ``dtype``
-(float32 or bfloat16), and the images come out float32 (each head's tanh
-runs on its conv's output cast to float32); the maps and ``mu``/``logvar``
-come out in ``dtype``.
+``GNet(dtype=...)`` / ``GDCGAN(dtype=...)`` are the JAX package's
+``dtype=``: the parameters stay float32, the convolutions and linears
+compute in ``dtype`` (float32 or bfloat16), and the images come out float32
+(each head's tanh runs on its conv's output cast to float32); the maps and
+``mu``/``logvar`` come out in ``dtype``.
 """
 
 from __future__ import annotations
@@ -98,7 +102,19 @@ class GetImageG(nn.Module):
         return tanh(promote(conv(h)))
 
 
-class GNet(nn.Module):
+class _Generator(nn.Module):
+    """:meth:`forward` in the JAX package's layouts around a subclass's
+    :meth:`forward_nchw`."""
+
+    def forward(self, z, sent_emb, word_embs, pad_mask: Optional[torch.Tensor],
+                eps) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                              torch.Tensor, torch.Tensor]:
+        fakes, atts, mu, logvar = self.forward_nchw(z, sent_emb, word_embs, pad_mask, eps)
+        fakes = [f.permute(0, 2, 3, 1).contiguous() for f in fakes]
+        return fakes, atts, mu, logvar
+
+
+class GNet(_Generator):
     """Tree generator (G_NET / G_NET_MIX).  In train mode its BatchNorms
     normalize by batch statistics and move their running statistics as flax
     does; in eval mode they use the running statistics.
@@ -137,13 +153,6 @@ class GNet(nn.Module):
             self.img_net3 = GetImageG(ngf)
         set_compute_dtype(self, dtype)
 
-    def forward(self, z, sent_emb, word_embs, pad_mask: Optional[torch.Tensor],
-                eps) -> Tuple[List[torch.Tensor], List[torch.Tensor],
-                              torch.Tensor, torch.Tensor]:
-        fakes, atts, mu, logvar = self.forward_nchw(z, sent_emb, word_embs, pad_mask, eps)
-        fakes = [f.permute(0, 2, 3, 1).contiguous() for f in fakes]
-        return fakes, atts, mu, logvar
-
     def forward_nchw(self, z, sent_emb, word_embs, pad_mask: Optional[torch.Tensor],
                      eps) -> Tuple[List[torch.Tensor], List[torch.Tensor],
                                    torch.Tensor, torch.Tensor]:
@@ -165,12 +174,57 @@ class GNet(nn.Module):
         return fakes, atts, mu, logvar
 
 
-def build_generator(cfg) -> GNet:
-    """The generator ``cfg`` describes, computing in ``JAX.DTYPE`` (GDCGAN
-    is not ported yet)."""
-    if cfg.GAN.B_DCGAN:
-        raise NotImplementedError("GAN.B_DCGAN (G_DCGAN) is not ported yet")
-    return GNet(
+class GDCGAN(_Generator):
+    """Single-image generator (G_DCGAN, ``GAN.B_DCGAN``): CA net, mapping
+    net, :class:`InitStageG`, up to two :class:`NextStageG` and one
+    :class:`GetImageG` on the last stage's features.  Every refinement stage
+    takes the same w code, which its AdaIN applies before the residual
+    blocks, so the mapping net shapes the image (and takes a gradient) at
+    any ``num_residual``, 0 included.  (The JAX package's comment at
+    ``sba_gan_tpu/models/generator.py:249-252`` says w is unused at R_NUM 0;
+    its code, which this follows, applies it.)
+
+    forward(z, sent_emb, word_embs, pad_mask, eps) as :class:`GNet`'s with
+    z (B, Z); returns ([image (B, S, S, 3)], maps [(B, H, W, T)], mu,
+    logvar), S = 64 * 2 ** (branch_num - 1).
+    """
+
+    def __init__(self, gf_dim: int, nef: int, z_dim: int, condition_dim: int,
+                 w_dim: int, branch_num: int = 3, num_residual: int = 2,
+                 mapping_layers: int = 6, z_concat: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if not 1 <= branch_num <= 3:
+            raise ValueError(f"branch_num must be 1..3, got {branch_num}")
+        ngf = gf_dim
+        self.branch_num = branch_num
+        self.z_concat = z_concat
+        self.ca_net = CANet(nef, condition_dim)
+        self.mapping_net = MappingNet(z_dim, w_dim, mapping_layers)
+        in_dim = condition_dim + z_dim if z_concat else condition_dim
+        self.h_net1 = InitStageG(ngf * 16, in_dim)
+        for j in range(2, branch_num + 1):
+            setattr(self, f"h_net{j}", NextStageG(ngf, nef, w_dim, num_residual))
+        self.img_net = GetImageG(ngf)
+        set_compute_dtype(self, dtype)
+
+    def forward_nchw(self, z, sent_emb, word_embs, pad_mask: Optional[torch.Tensor],
+                     eps) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                   torch.Tensor, torch.Tensor]:
+        c_code, mu, logvar = self.ca_net(sent_emb, eps)
+        w_code = self.mapping_net(z)
+        h = self.h_net1(torch.cat([c_code, z], dim=1) if self.z_concat else c_code)
+        atts = []
+        for j in range(2, self.branch_num + 1):
+            h, att = getattr(self, f"h_net{j}")(h, w_code, word_embs, pad_mask)
+            atts.append(att)
+        return [self.img_net(h)], atts, mu, logvar
+
+
+def build_generator(cfg) -> nn.Module:
+    """The generator ``cfg`` describes, computing in ``JAX.DTYPE``:
+    :class:`GDCGAN` under ``GAN.B_DCGAN``, else :class:`GNet`."""
+    common = dict(
         gf_dim=cfg.GAN.GF_DIM,
         nef=cfg.TEXT.EMBEDDING_DIM,
         z_dim=cfg.GAN.Z_DIM,
@@ -180,6 +234,8 @@ def build_generator(cfg) -> GNet:
         num_residual=cfg.GAN.R_NUM,
         mapping_layers=cfg.GAN.M_NUM,
         z_concat=cfg.GAN.INIT_Z_CONCAT,
-        style_mixing=cfg.TRAIN.MIXING,
         dtype=compute_dtype(cfg),
     )
+    if cfg.GAN.B_DCGAN:
+        return GDCGAN(**common)
+    return GNet(style_mixing=cfg.TRAIN.MIXING, **common)

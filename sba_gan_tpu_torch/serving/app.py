@@ -1,7 +1,9 @@
 """Inference REST service over the port's sampler.
 
 * ``POST /api/v1.0/bird``  — one caption -> ``{"bird": {small, medium,
-  large, map1, map2, caption, elapsed}}``, 201;
+  large, map1, map2, caption, elapsed}}``, 201 (one label per stage the
+  generator makes: GDCGAN's one image is ``small``, as in the JAX
+  service);
 * ``POST /api/v1.0/birds`` — six generations -> ``{"bird": {bird1..bird6,
   caption, elapsed}}``, 201;
 * ``GET  /``               — name and version;

@@ -18,7 +18,9 @@ jointly on the words and sentence losses (the JAX package's
   generator; BERT has no dropout and gets neither;
 * each epoch re-creates both optimizers (moments reset) with the learning
   rate of :func:`epoch_lr` (x0.98 per epoch while above a tenth of the
-  base), as the reference does.
+  base), as the reference does;
+* ``JAX.DAMSM_CHUNKS`` above 1 (the JAX trainer's sequential sub-batches
+  of the train-mode Inception) raises: not ported.
 
 The similarity of the words loss goes through kernels K1-K3 on the card,
 with ``JAX.LOSS_DTYPE`` as their ``mm_dtype``; the encoders compute in
@@ -106,6 +108,11 @@ class DAMSMTrainer:
     generator; host code drives the epochs."""
 
     def __init__(self, cfg, models: DAMSMModels, device="cuda"):
+        if cfg.JAX.DAMSM_CHUNKS > 1:
+            raise NotImplementedError(
+                f"JAX.DAMSM_CHUNKS={cfg.JAX.DAMSM_CHUNKS}: pretraining over sequential "
+                "sub-batches of the train-mode Inception (their own BatchNorm statistics) "
+                "is not ported (ROADMAP.md, queue 1, item 4); use 1")
         self.mm_dtype = loss_dtype(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)

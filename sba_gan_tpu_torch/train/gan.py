@@ -9,7 +9,9 @@ One step, in the JAX step's order:
 2. G runs forward once, in train mode (its BatchNorm running statistics
    move), with noise ``z`` (B, Z) or (2, B, Z) under ``TRAIN.MIXING`` and
    the CA noise ``eps`` (B, CONDITION_DIM);
-3. each D is updated on the detached fakes by its own Adam step;
+3. each D is updated on the detached fakes by its own Adam step (under
+   ``GAN.B_DCGAN`` G makes one image and there is one D, at the final
+   scale, which takes the last of the reals, as the JAX step pairs them);
 4. the G loss is taken against the *updated* Ds, in train mode but with
    their running statistics frozen (the JAX step drops those updates);
    D parameters get no gradient;
@@ -17,7 +19,8 @@ One step, in the JAX step's order:
    the DAMSM words and sentence losses, times ``TRAIN.SMOOTH.LAMBDA``, are
    added (with lambda 0 they leave the graph); then KL;
 6. G takes its Adam step, then the EMA ``avg = 0.999 avg + 0.001 p`` over
-   G's parameters (not its BatchNorm statistics).
+   G's parameters (not its BatchNorm statistics), each average paired with
+   its parameter by name.
 
 Adam is torch's with betas (0.5, 0.999) and eps 1e-8, one per network.  The
 logs (``errD*``, ``g_loss*``, ``w_loss``, ``s_loss``, ``kl_loss``,
@@ -63,7 +66,7 @@ from sba_gan_tpu_torch.losses.damsm import damsm_losses
 from sba_gan_tpu_torch.losses.gan import discriminator_loss, generator_adv_loss, kl_loss
 from sba_gan_tpu_torch.models.blocks import init_weights
 from sba_gan_tpu_torch.models.discriminator import build_discriminators
-from sba_gan_tpu_torch.models.generator import GNet, build_generator
+from sba_gan_tpu_torch.models.generator import build_generator
 from sba_gan_tpu_torch.models.inception import CNNEncoder
 from sba_gan_tpu_torch.models.inception import init_weights as init_image_weights
 from sba_gan_tpu_torch.models.norms import frozen_running_stats
@@ -83,7 +86,7 @@ def log_keys(n_ds: int) -> Tuple[str, ...]:
 class GANModels(NamedTuple):
     text_encoder: nn.Module
     image_encoder: CNNEncoder
-    generator: GNet
+    generator: nn.Module  # GNet, or GDCGAN under GAN.B_DCGAN
     discriminators: Tuple[nn.Module, ...]
 
 
@@ -138,7 +141,7 @@ class GANTrainState:
         self.d_accums = [_zeros(d) if accum and mode == "window" else None
                          for d in self.discriminators]
 
-    def ema_generator(self) -> GNet:
+    def ema_generator(self) -> nn.Module:
         """A copy of G holding the EMA parameters and G's BatchNorm
         statistics, in eval mode (what sampling runs)."""
         g = copy.deepcopy(self.generator).eval()
@@ -303,6 +306,8 @@ class GANStep:
         mark("text")
 
         fakes, _, mu, logvar = s.generator.forward_nchw(z, sent, words, pad_mask, eps)
+        if len(fakes) != len(imgs):  # GDCGAN: its one image meets the final-scale reals
+            imgs = imgs[-1:]
         reals = [img.permute(0, 3, 1, 2).contiguous() for img in imgs]
         mark("g_forward")
 
@@ -332,14 +337,15 @@ class GANStep:
         total = total + kl
         mark("damsm")
 
-        params = list(s.generator.parameters())
+        names, params = zip(*s.generator.named_parameters())
+        params = list(params)
         grads = _grads(total, params)
         mark("g_backward")
         self._update(s.g_opt, params, grads, s.g_accum)
         mark("g_adam")
         if (s.step + 1) % s.accum_k == 0:  # the EMA folds once a window
             with torch.no_grad():
-                ema = list(s.g_ema.values())
+                ema = [s.g_ema[n] for n in names]
                 torch._foreach_mul_(ema, EMA_DECAY)
                 torch._foreach_add_(ema, [p.detach() for p in params],
                                     alpha=1.0 - EMA_DECAY)

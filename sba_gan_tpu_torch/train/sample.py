@@ -1,4 +1,5 @@
-"""Text -> image inference: captions -> three images and two attention maps.
+"""Text -> image inference: captions -> the generator's images (one per
+stage, or GDCGAN's one) and its attention maps (one per refinement stage).
 
 The port's counterpart of the JAX package's ``make_sample_fn`` and its
 ``with_noise`` variant.  The generator holds the EMA weights (a JAX train
@@ -17,7 +18,7 @@ from torch import nn
 from sba_gan_tpu_torch.config import compute_dtype
 from sba_gan_tpu_torch.models import text_bert
 from sba_gan_tpu_torch.models.blocks import init_weights
-from sba_gan_tpu_torch.models.generator import GNet, build_generator
+from sba_gan_tpu_torch.models.generator import build_generator
 from sba_gan_tpu_torch.models.text_rnn import RNNEncoder
 from sba_gan_tpu_torch.models.text_rnn import init_weights as init_rnn_weights
 from sba_gan_tpu_torch.utils import weights as W
@@ -54,11 +55,11 @@ def init_text_weights(encoder: nn.Module, generator: torch.Generator) -> None:
 class Sampler:
     """``sampler(captions, cap_lens, seed)`` or
     ``sampler.with_noise(captions, cap_lens, z, eps)`` -> (fakes, atts) as
-    CPU numpy arrays: fakes[i] (B, S_i, S_i, 3) in [-1, 1], atts[j]
-    (B, H_j, W_j, T).  ``launch`` returns the same as tensors on the device,
-    without waiting for them."""
+    CPU numpy arrays: fakes[i] (B, S_i, S_i, 3) in [-1, 1] (GDCGAN: the
+    one final-scale image), atts[j] (B, H_j, W_j, T).  ``launch`` returns
+    the same as tensors on the device, without waiting for them."""
 
-    def __init__(self, cfg, generator: GNet, text_encoder: nn.Module,
+    def __init__(self, cfg, generator: nn.Module, text_encoder: nn.Module,
                  device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -69,7 +70,8 @@ class Sampler:
     def from_config(cls, cfg, n_words: int, seed: int = 0,
                     weights: Optional[str] = None, device="cuda") -> "Sampler":
         """Models of ``cfg``: random weights made from ``seed``, or the
-        weights of an ``.npz`` file (see :mod:`utils.weights`), computing in
+        weights of an ``.npz`` file (see :mod:`utils.weights`; the
+        generator's key map is ``GAN.B_DCGAN``'s), computing in
         ``JAX.DTYPE``."""
         dev = resolve_device(device)
         generator = build_generator(cfg)
@@ -80,7 +82,8 @@ class Sampler:
             init_text_weights(text_encoder, gen)
         else:
             g_params, g_stats, text_params = W.read_npz(weights)
-            generator.load_state_dict(W.g_net_state_dict(g_params, g_stats))
+            generator.load_state_dict(W.g_net_state_dict(g_params, g_stats,
+                                                          dcgan=cfg.GAN.B_DCGAN))
             text_encoder.load_state_dict(W.text_encoder_state_dict(text_params))
         return cls(cfg, generator, text_encoder, device=dev)
 

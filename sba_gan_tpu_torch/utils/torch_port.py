@@ -19,6 +19,8 @@ JAX package's ``port_bert``) into the transformer of the port's
 import, and :func:`load_rnn_encoder` refuses it.
 
 Files are read with ``torch.load(..., weights_only=True)`` on the CPU.
+A reference G_DCGAN ``netG`` is not imported either: the JAX package has no
+import of it.
 """
 
 from __future__ import annotations
@@ -53,9 +55,21 @@ def load_reference(module: nn.Module, state_dict: Dict[str, torch.Tensor],
     module.load_state_dict(sd, strict=False)
 
 
+def refuse_dcgan_net_g(path: str) -> None:
+    """Raises: a reference G_DCGAN ``netG`` is not imported, as the JAX
+    package imports none (its ``port_g_net`` maps G_NET's layout only)."""
+    raise NotImplementedError(
+        f"netG {path}: a reference G_DCGAN generator (GAN.B_DCGAN) is not imported "
+        "(ROADMAP.md, queue 1, item 3); the port trains, saves and resumes its own")
+
+
 def load_g_net(generator: nn.Module, path: str) -> None:
     """A reference ``netG_epoch_*.pth`` (EMA weights, as the reference saves
-    them) into the port's GNet."""
+    them) into the port's GNet; a GDCGAN raises (:func:`refuse_dcgan_net_g`)."""
+    from sba_gan_tpu_torch.models.generator import GDCGAN
+
+    if isinstance(generator, GDCGAN):
+        refuse_dcgan_net_g(path)
     sd = {k: v[:, :, 0, 0] if k.endswith("att.conv_context.weight") and v.dim() == 4 else v
           for k, v in load_state_dict_file(path).items()}
     load_reference(generator, sd, f"netG {path}")

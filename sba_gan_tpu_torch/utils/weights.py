@@ -2,7 +2,8 @@
 
 The JAX package keeps its variables as nested dicts in Flax tree layout
 (``CANet_0/Dense_0/kernel`` ...).  These functions turn them, as numpy
-arrays, into ``state_dict``s of the port's :class:`GNet`, ``DNet64/128/256``,
+arrays, into ``state_dict``s of the port's :class:`GNet` or :class:`GDCGAN`,
+``DNet64/128/256``,
 :class:`RNNEncoder`, :class:`BertEncoder` and :class:`CNNEncoder`, whose
 module names are the reference G_NET / D_NET / RNN_ENCODER / torchvision
 Inception-v3 / HuggingFace ``BertModel`` state-dict keys.  Apart from the
@@ -13,6 +14,12 @@ read reference checkpoints:
 * conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
 * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
 * ``WordAttention_0/Dense_0/kernel`` -> the word projection ``att.conv_context``;
+* the generator's RGB heads: ``GetImageG_k`` -> ``img_net{k+1}`` in GNet,
+  and GDCGAN's single ``GetImageG_0`` -> ``img_net`` (``NextStageG_k`` ->
+  ``h_net{k+2}`` in both).  Which layout a tree has is the config's
+  ``GAN.B_DCGAN``, or, where no config is given, the tree's: refinement
+  stages and a single head make a GDCGAN (at one branch the two layouts
+  hold the same paths, and the GNet map is taken);
 * the RNN gates copy through unchanged (both sides use torch's layout);
 * BERT's ``layer_N/attention_self/query`` -> ``bert.encoder.layer.N.attention.
   self.query`` and so on (the inverse of the JAX package's ``port_bert``),
@@ -35,7 +42,7 @@ by ``/``, named as the JAX package's train state names them:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,9 +90,10 @@ def _up_block_key(prefix: str, rest) -> str:
     raise KeyError(rest)
 
 
-def g_net_key(path: Tuple[str, ...]) -> str:
-    """Port key of one Flax GNet path, e.g. ('CANet_0', 'Dense_0', 'kernel')
-    -> 'ca_net.fc.weight'.  Raises KeyError for a path it does not know."""
+def g_net_key(path: Tuple[str, ...], dcgan: bool = False) -> str:
+    """Port key of one Flax GNet path (with ``dcgan``, GDCGAN path), e.g.
+    ('CANet_0', 'Dense_0', 'kernel') -> 'ca_net.fc.weight'.  Raises KeyError
+    for a path it does not know."""
     top, leaf = path[0], path[-1]
     try:
         if top == "CANet_0":
@@ -101,6 +109,8 @@ def g_net_key(path: Tuple[str, ...]) -> str:
                 k = _index(path[1]) + 1
                 return _up_block_key(f"h_net1.upsample{k}", path[2:])
         if top.startswith("GetImageG_"):
+            if dcgan:
+                return {"GetImageG_0": "img_net.img.0.weight"}[top]
             return f"img_net{_index(top) + 1}.img.0.weight"
         if top.startswith("NextStageG_"):
             p = f"h_net{_index(top) + 2}"
@@ -119,7 +129,14 @@ def g_net_key(path: Tuple[str, ...]) -> str:
                 return _up_block_key(f"{p}.upsample", path[2:])
     except (KeyError, IndexError, ValueError):
         pass
-    raise KeyError(f"no port key for Flax GNet path {'/'.join(path)}")
+    raise KeyError(f"no port key for Flax {'GDCGAN' if dcgan else 'GNet'} path "
+                   f"{'/'.join(path)}")
+
+
+def is_dcgan_tree(params: Mapping) -> bool:
+    """Whether a generator's Flax ``params`` are GDCGAN's: refinement stages
+    (``NextStageG_0``) and one RGB head."""
+    return "NextStageG_0" in params and "GetImageG_1" not in params
 
 
 def flax_leaf_to_torch(path: Tuple[str, ...], value: np.ndarray) -> torch.Tensor:
@@ -131,13 +148,18 @@ def flax_leaf_to_torch(path: Tuple[str, ...], value: np.ndarray) -> torch.Tensor
     return torch.from_numpy(np.ascontiguousarray(v))
 
 
-def g_net_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax GNet ``params`` + ``batch_stats`` -> the port's GNet state_dict."""
+def g_net_state_dict(params: Mapping, batch_stats: Mapping,
+                     dcgan: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+    """Flax GNet or GDCGAN ``params`` + ``batch_stats`` -> the port's
+    state_dict; ``dcgan`` (``GAN.B_DCGAN``) picks the map, None reads it
+    from the tree (:func:`is_dcgan_tree`)."""
+    if dcgan is None:
+        dcgan = is_dcgan_tree(params)
     sd: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats):
         for key, value in flatten_tree(tree).items():
             path = tuple(key.split("/"))
-            name = g_net_key(path)
+            name = g_net_key(path, dcgan)
             if name in sd:
                 raise KeyError(f"two Flax paths map to {name}")
             sd[name] = flax_leaf_to_torch(path, value)
@@ -284,16 +306,20 @@ def d_net_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.T
     return sd
 
 
-def gan_state_from_jax(state: Mapping) -> Dict[str, Any]:
+def gan_state_from_jax(state: Mapping, dcgan: Optional[bool] = None) -> Dict[str, Any]:
     """A JAX ``GANTrainState`` as nested numpy dicts (``g`` with ``params``
     and ``batch_stats``, ``g_ema``, ``ds`` a sequence of ``params`` +
     ``batch_stats``, ``text`` and ``image`` variables) -> the port's state
     dicts: ``generator``, ``g_ema`` (G's parameters only), ``discriminators``
-    (a list), ``text_encoder`` (RNN or BERT) and ``image_encoder``.
-    Optimizer moments are not carried."""
-    g_ema = g_net_state_dict(state["g_ema"], {})
+    (a list), ``text_encoder`` (RNN or BERT) and ``image_encoder``.  G's map
+    is ``dcgan``'s (``GAN.B_DCGAN``), or with None the tree's.  Optimizer
+    moments are not carried."""
+    if dcgan is None:
+        dcgan = is_dcgan_tree(state["g"]["params"])
+    g_ema = g_net_state_dict(state["g_ema"], {}, dcgan)
     return {
-        "generator": g_net_state_dict(state["g"]["params"], state["g"]["batch_stats"]),
+        "generator": g_net_state_dict(state["g"]["params"], state["g"]["batch_stats"],
+                                      dcgan),
         "g_ema": g_ema,
         "discriminators": [d_net_state_dict(d["params"], d["batch_stats"])
                            for d in state["ds"]],
@@ -304,7 +330,9 @@ def gan_state_from_jax(state: Mapping) -> Dict[str, Any]:
 
 
 def read_npz(path: str) -> Tuple[Dict, Dict, Dict]:
-    """A serving weights file -> (g_ema params, g batch_stats, text params)."""
+    """A serving weights file -> (g_ema params, g batch_stats, text params),
+    as trees; :func:`g_net_state_dict` maps the generator's with the
+    config's layout, or the tree's."""
     with np.load(path) as z:
         tree = unflatten_tree({k: z[k] for k in z.files})
     try:

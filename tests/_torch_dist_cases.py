@@ -40,9 +40,13 @@ DAMSM_TINY = {"TREE": {"BRANCH_NUM": 1, "BASE_SIZE": 64},
               "TRAIN": {"BATCH_SIZE": B}}
 
 
-def gan_cfg(accum: int = 1, mode: str = "window"):
+def gan_cfg(accum: int = 1, mode: str = "window", dcgan: bool = False):
+    """GAN_TINY, with ``dcgan`` as ``GAN.B_DCGAN`` at R_NUM 0 (GDCGAN, one
+    D at the final scale, 128)."""
     raw = copy.deepcopy(GAN_TINY)
     raw["TRAIN"].update(GRAD_ACCUM=accum, GRAD_ACCUM_MODE=mode)
+    if dcgan:
+        raw["GAN"].update(B_DCGAN=True, R_NUM=0)
     return cfg_from_dict(raw)
 
 
@@ -70,22 +74,24 @@ def _double(*modules):
         m.double()
 
 
-def gan_models():
+def gan_models(dcgan: bool = False):
     from sba_gan_tpu_torch.train.gan import build_models
 
-    return build_models(gan_cfg(), N_WORDS, seed=0)
+    return build_models(gan_cfg(dcgan=dcgan), N_WORDS, seed=0)
 
 
-def gan(accum: int = 1, mode: str = "window", noise=None, steps: int = 2):
+def gan(accum: int = 1, mode: str = "window", noise=None, steps: int = 2,
+        dcgan: bool = False):
     """``steps`` GAN steps in float64 from the seeded models: per step the
     logs and each network's gradient (``grad``, summed over ranks), then the
     state dict.  ``noise``: per step the global (z, eps), else the step's
     own draws for the global batch (float32, which the test's float64
-    models take cast), kept in the result."""
+    models take cast), kept in the result.  ``dcgan``: GDCGAN and its one
+    D (:func:`gan_cfg`)."""
     from sba_gan_tpu_torch.train.gan import GANStep, init_gan_state
 
-    cfg = gan_cfg(accum, mode)
-    models = gan_models()
+    cfg = gan_cfg(accum, mode, dcgan)
+    models = gan_models(dcgan)
     _double(models.text_encoder, models.image_encoder, models.generator,
             *models.discriminators)
     state = init_gan_state(cfg, models, device="cpu")

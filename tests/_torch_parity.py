@@ -105,12 +105,14 @@ def jax_gan_state(jcfg, jmodels, models, text_key) -> GANTrainState:
     """The JAX GAN train state of ``jcfg`` holding the weights of the
     port's ``models`` (its text encoder's paths mapped by ``text_key``),
     with fresh optimizer states: a Flax init of these models takes a
-    minute on the CPU."""
+    minute on the CPU.  G's paths are mapped as ``GAN.B_DCGAN`` lays them
+    out (GNet or GDCGAN)."""
     abstract = jax.eval_shape(lambda: jax_init_gan_state(jcfg, jmodels,
                                                          jax.random.PRNGKey(0)))
     g_tx, d_tx = gan_optimizers(jcfg)
     g_sd = models.generator.state_dict()
-    g = {c: flax_tree_from_port(getattr(abstract.g, c), g_sd, W.g_net_key)
+    g_key = lambda path: W.g_net_key(path, jcfg.GAN.B_DCGAN)  # noqa: E731
+    g = {c: flax_tree_from_port(getattr(abstract.g, c), g_sd, g_key)
          for c in ("params", "batch_stats")}
     ds = []
     for ab, d in zip(abstract.ds, models.discriminators):

@@ -257,6 +257,24 @@ def test_loss_dtype_sets_the_kernels_mm_dtype(loss_dtype):
     assert trainer.mm_dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_damsm_chunks_above_one_is_refused(chunks):
+    """``JAX.DAMSM_CHUNKS`` > 1 (the JAX trainer's sequential sub-batches of
+    the train-mode Inception, whose BatchNorm statistics differ from one
+    pass) is not ported: the trainer raises, naming ROADMAP.md; 1 trains as
+    before."""
+    cfg = cfg_from_dict({**TINY, "JAX": {"DAMSM_CHUNKS": chunks}})
+    if chunks > 1:
+        with pytest.raises(NotImplementedError, match="DAMSM_CHUNKS.*ROADMAP"):
+            DAMSMTrainer(cfg, build_damsm_models(cfg, N_WORDS), device="cpu")
+        return
+    trainer = DAMSMTrainer(cfg, build_damsm_models(cfg, N_WORDS, seed=0), device="cpu")
+    img, captions, cap_lens, class_ids = (torch.from_numpy(a) for a in make_batch())
+    logs = trainer.train_step(img.float(), captions.long(), cap_lens.long(), class_ids.long())
+    assert sorted(logs) == sorted(LOG_KEYS) and all(np.isfinite(float(v))
+                                                    for v in logs.values())
+
+
 def test_checkpointer_round_trip(tmp_path):
     ckpt = Checkpointer(str(tmp_path), max_to_keep=2)
     assert ckpt.latest_step() is None

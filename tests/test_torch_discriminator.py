@@ -146,5 +146,10 @@ def test_weight_map_keys_and_dcgan_refusal():
     assert W.d_net_key(("uncond_head", "Conv_0", "bias")) == "UNCOND_DNET.outlogits.0.bias"
     with pytest.raises(KeyError):
         W.d_net_key(("uncond_head", "Block3x3LeakRelu_0", "Conv3x3_0", "Conv_0", "kernel"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_discriminators(cfg_from_dict({**DIMS, "GAN": {"DF_DIM": NDF, "B_DCGAN": True}}))
+    # GAN.B_DCGAN: one D, at the final scale, without the unconditional head
+    (d,) = build_discriminators(cfg_from_dict({**DIMS, "GAN": {"DF_DIM": NDF,
+                                                               "B_DCGAN": True}}))
+    assert type(d).__name__ == "DNet256" and d.UNCOND_DNET is None
+    assert not any(k.startswith("UNCOND_DNET") for k in d.state_dict())
+    with pytest.raises(ValueError, match="no unconditional head"):
+        d.uncond_logits(torch.zeros(1))

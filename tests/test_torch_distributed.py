@@ -7,8 +7,10 @@ the 2-rank GAN step's logs against the JAX package's step at batch 8 (whose
 tests/_mesh_cases.py:gan_sharded).
 
 Cases, float64 modules (tiny widths: GF/DF 8, EMBEDDING 32, WORDS 6,
-Inception input 75): two GAN steps (BRANCH_NUM 2) plain, and under
-``GRAD_ACCUM`` 2 in 'window' and in 'dfresh'; two DAMSM pretrain steps
+Inception input 75): two GAN steps (BRANCH_NUM 2) plain, under
+``GRAD_ACCUM`` 2 in 'window' and in 'dfresh', and under ``GAN.B_DCGAN``
+(GDCGAN at R_NUM 0 and its one D, whose loss means divide by the global
+batch and by B - 1 for the wrong pairs across ranks); two DAMSM pretrain steps
 (the RNN encoder's dropout, the Inception's train-mode BatchNorms, the
 clip); and units: the BatchNorm's statistics and gradients (4 + 4 rows,
 and 4 + 3), the wrong pairs across the rank boundary with a D's loss and
@@ -55,7 +57,8 @@ from sba_gan_tpu_torch.data.pipeline import DataLoader, build_dataset
 from sba_gan_tpu_torch.parallel import dist
 
 LR = 2e-4
-GAN_RUNS = {"plain": {}, "window": {"accum": 2}, "dfresh": {"accum": 2, "mode": "dfresh"}}
+GAN_RUNS = {"plain": {}, "window": {"accum": 2}, "dfresh": {"accum": 2, "mode": "dfresh"},
+            "dcgan": {"dcgan": True}}
 UNITS = ("batchnorm", "wrong_pair", "damsm", "collectives")
 WORLD_TIMEOUT = 300.0
 
