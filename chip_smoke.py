@@ -119,9 +119,9 @@ and nothing of JAX.  Phases, each printing one line or more:
    step in the gan_step bounds, the DAMSM/bird pretrain step in
    PRETRAIN_TOL, both ranks identical, each rank's launches (K4 2, K1 1,
    K2 1 a GAN step; K1, K2, K3 1 a pretrain step); ``gan_bench_dist``,
-   ``bench.measure`` of the plain step at batch 64 beside step 10's at 128,
-   GRAD_ACCUM 2 at 64 in both modes and the world of one over NCCL at 128
-   (images/s, device ms, launches, collectives' device ms and host
+   ``bench.measure`` of GRAD_ACCUM 2 at 64 in both modes (an update of 128)
+   and of the world of one over NCCL at 128, beside step 10's plain step at
+   128 (images/s, device ms, launches, collectives' device ms and host
    microseconds a call, peak memory);
    ``dist_cli``, ``torchrun --standalone --nproc_per_node 1`` of ``main``
    (GRAD_ACCUM 3, batch 8, small widths: a save in the middle of a window,
@@ -142,11 +142,35 @@ and nothing of JAX.  Phases, each printing one line or more:
    devices); ``gan_bench_dcgan``, ``bench.measure`` with the preset's keys
    at batch 30 in float32 and bfloat16 and at 128 in float32, beside step
    10's bird_style lines;
-20. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
+20. ``JAX.DAMSM_CHUNKS`` in pretraining, the native JPEG loader and the
+   profiling hooks: ``pretrain_step_chunks`` (after step 7), step 7's step
+   with DAMSM_CHUNKS 2 (the train-mode Inception over two sequential
+   sub-batches, each with its own BatchNorm statistics) card against CPU
+   under PRETRAIN_TOL, running statistics included, K1, K2 and K3 once
+   each, its logs and running statistics far from step 7's one-pass ones;
+   ``profiling`` (after step 8), three pretrain steps under
+   ``utils.profiling.trace`` with each batch under ``annotate("data")``: the
+   trace holds three ``data`` ranges and K1-K3 by name; ``pretrain_chunks_memory``
+   (after step 9), ms a step and peak memory at batch 128 and 512 with
+   chunks 1 and 4; ``native_loader`` (after step 12), ``MODEL.IMAGE_LOADER:
+   native`` on the CUB tree: where g++ or libjpeg is missing, the build's
+   error line and the reader raising without a PIL read; where it builds,
+   items against PIL's and 0 against 4 threads, items/s;
+21. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
    K4's also in the evaluation phases, each kernel's on the BERT paths
-   under ``bert_paths``, on the data-parallel paths under ``dist_paths``
-   and on the GAN.B_DCGAN paths under ``dcgan_paths``), then the device
-   JSON line last.
+   under ``bert_paths``, on the data-parallel paths under ``dist_paths``,
+   on the GAN.B_DCGAN paths under ``dcgan_paths``, and K1-K3's on the
+   chunked pretraining and profiling paths under ``chunks_paths``), then
+   the device JSON line last.
+
+The phases run in the order of ``main``, which differs from the numbers
+above: one thread computes the CPU's reference runs of the GAN steps (step
+9, the BERT steps of 17, the accumulation window of 18, the DCGAN step of
+19) beside phases whose host time is no metric (the pretraining phases,
+the CLIs, the ranks); each line carries ``at_s``, its seconds since the
+start.  The bench lines beside the gan_bench phases' (``gan_bench_bert``,
+``gan_bench_dist``, ``gan_bench_dcgan``) time a window of 10 steps and
+trace one (``SHORT_BENCH``).
 
 Under ``JAX.DTYPE`` and ``LOSS_DTYPE`` bfloat16 (the JAX package's
 accelerator setting), beside the float32 phases: each kernel's bfloat16
@@ -208,8 +232,14 @@ def tf32(cudnn: bool, matmul: bool):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+T_START = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of ``phase``, stamped with the seconds since the script
+    started (``at_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - T_START, 1)}), flush=True)
 
 
 def _events_ms(run, count: int) -> float:
@@ -465,15 +495,18 @@ def _rel_err(got, want) -> float:
     return (got.cpu() - want.cpu()).abs().max().item() / (scale or 1.0)
 
 
-def phase_pretrain_step(cfg, batch_size):
-    """One full-width DAMSM train step on the card against the same step on
-    the CPU: same weights, batch and dropout mask, TF32 off."""
+def pretrain_step_runs(cfg, batch_size, chunks=1):
+    """One full-width DAMSM train step of ``cfg`` (``JAX.DAMSM_CHUNKS``
+    ``chunks``) on the card and on the CPU from the same weights, batch and
+    dropout mask, TF32 off: logs, gradients, running statistics, seconds
+    and the card's launches (counts set to 0 just before its step)."""
     from sba_gan_tpu_torch.data.pipeline import collate
     from sba_gan_tpu_torch.data.cub import SyntheticDataset
-    from sba_gan_tpu_torch.train.damsm import LOG_KEYS, DAMSMTrainer, build_damsm_models
+    from sba_gan_tpu_torch.train.damsm import DAMSMTrainer, build_damsm_models
 
     cfg = copy.deepcopy(cfg)
     cfg.TRAIN.BATCH_SIZE = batch_size
+    cfg.JAX.DAMSM_CHUNKS = chunks
     models = build_damsm_models(cfg, N_WORDS, seed=SEED)
     ds = SyntheticDataset(num_examples=batch_size, base_size=cfg.TREE.BASE_SIZE,
                           branch_num=cfg.TREE.BRANCH_NUM, words_num=cfg.TEXT.WORDS_NUM,
@@ -481,10 +514,12 @@ def phase_pretrain_step(cfg, batch_size):
     batch = collate([ds[i] for i in range(batch_size)])
     keep = models.text_encoder.dropout_mask(batch.captions,
                                             torch.Generator().manual_seed(SEED + 2))
+    wrappers = _kernel_wrappers()
     runs = {}
     with tf32(cudnn=False, matmul=False):
         for device in ("cuda", "cpu"):
             trainer = DAMSMTrainer(cfg, copy.deepcopy(models), device=device)
+            reset_launches(wrappers)
             t0 = time.perf_counter()
             logs = trainer.train_step(
                 batch.imgs[-1].to(device), batch.captions.to(device), batch.cap_lens,
@@ -496,14 +531,30 @@ def phase_pretrain_step(cfg, batch_size):
                           trainer.image_encoder.named_parameters() if p.grad is not None})
             stats = {n: b for n, b in trainer.image_encoder.state_dict().items()
                      if n.endswith(("running_mean", "running_var"))}
-            runs[device] = dict(logs=logs, grads=grads, stats=stats, seconds=seconds)
+            runs[device] = dict(logs=logs, grads=grads, stats=stats, seconds=seconds,
+                                launches=read_launches(wrappers))
+    return runs
+
+
+def pretrain_step_readings(runs):
+    """The card's step against the CPU's, as PRETRAIN_TOL reads them."""
+    from sba_gan_tpu_torch.train.damsm import LOG_KEYS
+
     gpu, cpu = runs["cuda"], runs["cpu"]
-    errs = {
+    return {
         "logs": max(abs(gpu["logs"][k] - cpu["logs"][k]) / abs(cpu["logs"][k])
                     for k in LOG_KEYS),
         "grads": {n: _rel_err(g, cpu["grads"][n]) for n, g in gpu["grads"].items()},
         "stats": max(_rel_err(s, cpu["stats"][n]) for n, s in gpu["stats"].items()),
     }
+
+
+def phase_pretrain_step(cfg, batch_size):
+    """One full-width DAMSM train step on the card against the same step on
+    the CPU: same weights, batch and dropout mask, TF32 off."""
+    runs = pretrain_step_runs(cfg, batch_size)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    errs = pretrain_step_readings(runs)
     worst_grad = max(errs["grads"].values())
     say("pretrain_step", batch=batch_size, logs_cuda=gpu["logs"], logs_cpu=cpu["logs"],
         rel_err_logs=errs["logs"], rel_err_grads_max=worst_grad,
@@ -520,6 +571,117 @@ def phase_pretrain_step(cfg, batch_size):
             and errs["stats"] <= PRETRAIN_TOL["stats"]):
         raise AssertionError(f"pretrain step: card and CPU disagree beyond {PRETRAIN_TOL}")
     return runs
+
+
+PRETRAIN_CHUNKS = 2  # JAX.DAMSM_CHUNKS of the pretrain_step_chunks phase
+PRETRAIN_STEP_LAUNCHES = {"word_attention": 0, "damsm_sim_fwd": 1, "damsm_sim_dimg": 1,
+                          "damsm_sim_dwords": 1}
+
+
+def phase_pretrain_step_chunks(cfg, batch_size, one_pass):
+    """The pretrain_step phase's step with ``JAX.DAMSM_CHUNKS``
+    PRETRAIN_CHUNKS (the train-mode Inception over sequential sub-batches of
+    batch / chunks rows, each with its own BatchNorm statistics, the running
+    statistics moved once per sub-batch), on the card against the CPU under
+    PRETRAIN_TOL (logs, gradients, running statistics); K1, K2 and K3 once
+    each on the card (the losses run once on the whole batch); the card's
+    logs and running statistics other than those of the one-pass step of
+    ``one_pass`` (:func:`phase_pretrain_step`'s runs: the same weights,
+    batch and dropout mask) by a hundred times the card-vs-CPU readings of
+    either step, so the key took effect."""
+    t0 = time.perf_counter()
+    runs = pretrain_step_runs(cfg, batch_size, PRETRAIN_CHUNKS)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    errs = pretrain_step_readings(runs)
+    worst_grad = max(errs["grads"].values())
+    base = one_pass["cuda"]
+    moved = {"logs": max(abs(gpu["logs"][k] - base["logs"][k]) / abs(base["logs"][k])
+                         for k in gpu["logs"]),
+             "stats": max(_rel_err(v, base["stats"][n]) for n, v in gpu["stats"].items())}
+    say("pretrain_step_chunks", batch=batch_size, chunks=PRETRAIN_CHUNKS,
+        logs_cuda=gpu["logs"], logs_cpu=cpu["logs"], logs_cuda_one_pass=base["logs"],
+        rel_err_logs=errs["logs"], rel_err_grads_max=worst_grad,
+        rel_err_running_stats=errs["stats"], tol=PRETRAIN_TOL,
+        card_against_one_pass=moved, launches=gpu["launches"],
+        cpu_launches=cpu["launches"], step_s_cuda=gpu["seconds"],
+        step_s_cpu=cpu["seconds"], seconds=time.perf_counter() - t0)
+    bad = [k for k, v in (("logs", errs["logs"]), ("grads", worst_grad),
+                          ("stats", errs["stats"])) if not v <= PRETRAIN_TOL[k]]
+    if gpu["launches"] != PRETRAIN_STEP_LAUNCHES or any(cpu["launches"].values()):
+        bad.append(f"launches {gpu['launches']} (want {PRETRAIN_STEP_LAUNCHES})")
+    # per-sub-batch statistics are other values: a hundred times beyond the
+    # card-vs-CPU agreement of either step
+    agree = pretrain_step_readings(one_pass)
+    if not (moved["logs"] > 100 * max(errs["logs"], agree["logs"])
+            and moved["stats"] > 100 * max(errs["stats"], agree["stats"])):
+        bad.append(f"the chunked step equals the one-pass step ({moved})")
+    if bad:
+        raise AssertionError(f"pretrain_step_chunks: {bad}")
+    return gpu["launches"]
+
+
+# (batch, JAX.DAMSM_CHUNKS) of the pretrain_chunks_memory phase
+CHUNKS_MEMORY = ((128, 1), (128, 4), (512, 1), (512, 4))
+
+
+def phase_pretrain_chunks_memory(cfg, steps=3):
+    """Whether ``JAX.DAMSM_CHUNKS`` (built to cut the train-mode Inception's
+    peak in TPU HBM) buys anything on the card: the full-width DAMSM/bird
+    train step at the batches and chunk counts of CHUNKS_MEMORY (random
+    weights and a random batch on the card, PyTorch's default precision):
+    ms a step (the median of ``steps`` steps after one of warm-up, each
+    between CUDA events), the peak of allocated memory from a reset just
+    before, and each kernel's launches a step.  Torch keeps no activations
+    of the frozen trunk for the backward, so only the forward's peak can
+    shrink."""
+    from sba_gan_tpu_torch.train.damsm import DAMSMTrainer, build_damsm_models
+
+    t0 = time.perf_counter()
+    models = build_damsm_models(cfg, N_WORDS, seed=SEED)
+    wrappers = _kernel_wrappers()
+    lines = {}
+    for batch, chunks in CHUNKS_MEMORY:
+        c = copy.deepcopy(cfg)
+        c.TRAIN.BATCH_SIZE, c.JAX.DAMSM_CHUNKS = batch, chunks
+        gen = torch.Generator().manual_seed(SEED + batch)
+        size, t = c.MODEL.INCEPTION_INPUT, c.TEXT.WORDS_NUM
+        cap_lens = torch.randint(1, t + 1, (batch,), generator=gen)
+        captions = torch.randint(1, N_WORDS, (batch, t), generator=gen)
+        captions[torch.arange(t)[None, :] >= cap_lens[:, None]] = 0
+        args = (torch.rand((batch, size, size, 3), generator=gen).mul(2).sub(1).cuda(),
+                captions.cuda(), cap_lens,
+                torch.randint(0, 200, (batch,), generator=gen).cuda())
+        trainer = DAMSMTrainer(c, copy.deepcopy(models), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        float(trainer.train_step(*args)["total"])
+        reset_launches(wrappers)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        marks[0].record()
+        for i in range(steps):
+            logs = trainer.train_step(*args)
+            marks[i + 1].record()
+        finite = bool(torch.isfinite(logs["total"]))
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        lines[f"b{batch}_chunks{chunks}"] = dict(
+            batch=batch, chunks=chunks, step_ms=ms, step_ms_median=statistics.median(ms),
+            images_per_s=batch * 1e3 / statistics.median(ms),
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, finite=finite,
+            launches_per_step={k: v / steps for k, v in read_launches(wrappers).items()})
+        del trainer, args, logs
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("pretrain_chunks_memory", lines=lines, tf32={
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32},
+        seconds=time.perf_counter() - t0)
+    bad = [k for k, v in lines.items() if not v["finite"]
+           or v["launches_per_step"] != PRETRAIN_STEP_LAUNCHES]
+    if bad:
+        raise AssertionError(f"pretrain_chunks_memory: {bad}: "
+                             f"{ {k: lines[k]['launches_per_step'] for k in bad} }")
+    return {k: v["launches_per_step"] for k, v in lines.items()}
 
 
 def phase_pretrain_cli(cfg_path, out):
@@ -1300,7 +1462,150 @@ def phase_cub_tree(root):
             and sizes == [EVAL_BATCH] * (CUB_TEST // EVAL_BATCH) + [CUB_TEST % EVAL_BATCH]):
         raise AssertionError(f"CUB reader: workers equal serial {equal}, test items "
                              f"{len(test)}, batch sizes {sizes}")
-    return test.n_words
+    return test.n_words, rates
+
+
+NATIVE_DECODE_ATOL = 0.02  # tests/test_native_loader.py: the decode and crop against PIL
+NATIVE_RESIZE_MEAN = 0.05  # and the mean gap of a bilinear resize (another resampler)
+
+
+def phase_native_loader(root, pil_rates):
+    """``MODEL.IMAGE_LOADER: native`` on the CUB tree.  Where its library
+    cannot be built (no g++ or libjpeg), the build's error line is printed
+    and the reader must raise ``RuntimeError`` without reading anything
+    with PIL.  Where it builds: a square crop of a test image decoded at its
+    own size against PIL's decode (NATIVE_DECODE_ATOL); every test item and
+    the first train batch's items against the PIL reader's (the same
+    geometry, other resamplers: each image's mean gap under
+    NATIVE_RESIZE_MEAN); 0 and 4 reader threads equal exactly; items/s
+    beside the PIL rates of the cub_tree phase (``pil_rates``)."""
+    from PIL import Image
+
+    from sba_gan_tpu_torch.config import cfg_from_file
+    from sba_gan_tpu_torch.data import native_loader
+    from sba_gan_tpu_torch.data.pipeline import DataLoader, build_dataset
+
+    t0 = time.perf_counter()
+    cfg = cfg_from_file(EVAL_CFG)
+    cfg.DATA_DIR = root
+    native = copy.deepcopy(cfg)
+    native.MODEL.IMAGE_LOADER = "native"
+    try:
+        loader = native_loader.NativeImageLoader()
+    except RuntimeError as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        opened = []
+        real_open = Image.open
+        Image.open = lambda *a, **k: opened.append(a[0]) or real_open(*a, **k)
+        try:
+            build_dataset(native, False, "test")
+            raised = None
+        except RuntimeError as err:
+            raised = str(err).splitlines()[0]
+        finally:
+            Image.open = real_open
+        say("native_loader", available=False,
+            build_error=next((ln for ln in lines if "cannot find" in ln or "error" in ln),
+                             lines[-1]),
+            reader_raised=raised, pil_reads=len(opened), seconds=time.perf_counter() - t0)
+        if raised is None or opened:
+            raise AssertionError(f"native_loader: the reader did not raise ({raised}) or "
+                                 f"read {len(opened)} files with PIL")
+        return {"available": False}
+    pil = build_dataset(cfg, False, "test")
+    path = pil._image_path(pil.filenames[0])
+    side = min(Image.open(path).size) // 2
+    (crop,) = loader.load(path, sizes=[side], bbox=(7, 5, side, side))
+    with Image.open(path) as im:
+        want = np.asarray(im.convert("RGB").crop((7, 5, 7 + side, 5 + side)),
+                          np.float32) / 127.5 - 1.0
+    decode = float(np.abs(crop - want).max())
+    gaps, rates, equal = [], {}, {}
+    for split in ("test", "train"):
+        ds, ref = build_dataset(native, False, split), build_dataset(cfg, False, split)
+        for i in range(len(ds) if split == "test" else EVAL_BATCH):
+            gaps += [float(np.abs(a - b).mean()) for a, b in zip(ds[i][0], ref[i][0])]
+        runs = {}
+        for workers in (0, 4):
+            loader_w = DataLoader(build_dataset(native, False, split), EVAL_BATCH,
+                                  shuffle=split == "train", drop_last=False, seed=SEED,
+                                  num_workers=workers)
+            t1 = time.perf_counter()
+            runs[workers] = list(loader_w)
+            rates[f"{split}_workers{workers}"] = len(ds) / (time.perf_counter() - t1)
+        equal[split] = len(runs[0]) == len(runs[4]) and all(
+            a.keys == b.keys and all(torch.equal(x, y) for x, y in zip(a.imgs, b.imgs))
+            for a, b in zip(runs[0], runs[4]))
+    say("native_loader", available=True, library=str(native_loader.library_path()),
+        decode_max_abs=decode, decode_atol=NATIVE_DECODE_ATOL,
+        item_mean_gap_max=max(gaps), item_mean_gap_bound=NATIVE_RESIZE_MEAN,
+        workers_equal_serial=equal, items_per_s=rates, pil_items_per_s=pil_rates,
+        seconds=time.perf_counter() - t0)
+    if not (decode <= NATIVE_DECODE_ATOL and max(gaps) <= NATIVE_RESIZE_MEAN
+            and all(equal.values())):
+        raise AssertionError(f"native_loader: decode {decode}, item gap {max(gaps)}, "
+                             f"threads equal serial {equal}")
+    return {"available": True, "items_per_s": rates}
+
+
+def phase_profiling(cfg, out, batch_size=32, steps=3):
+    """``utils.profiling`` on the card: ``steps`` full-width DAMSM/bird train
+    steps under ``trace()``, each batch collated and moved to the card under
+    ``annotate("data")``; the Chrome trace written must hold ``steps`` host
+    ``data`` ranges (each also on the card's timeline, as it holds a copy)
+    and the kernels K1, K2 and K3 by name (their launches counted
+    beside)."""
+    import glob
+
+    from sba_gan_tpu_torch.bench import KERNEL_NAMES
+    from sba_gan_tpu_torch.data.cub import SyntheticDataset
+    from sba_gan_tpu_torch.data.pipeline import collate
+    from sba_gan_tpu_torch.train.damsm import DAMSMTrainer, build_damsm_models
+    from sba_gan_tpu_torch.utils.profiling import annotate, trace
+
+    t0 = time.perf_counter()
+    cfg = copy.deepcopy(cfg)
+    cfg.TRAIN.BATCH_SIZE = batch_size
+    trainer = DAMSMTrainer(cfg, build_damsm_models(cfg, N_WORDS, seed=SEED), device="cuda")
+    ds = SyntheticDataset(num_examples=batch_size * steps, base_size=cfg.TREE.BASE_SIZE,
+                          branch_num=cfg.TREE.BRANCH_NUM, words_num=cfg.TEXT.WORDS_NUM,
+                          n_words=N_WORDS, seed=SEED)
+
+    def step(i):
+        with annotate("data"):
+            b = collate([ds[j] for j in range(i * batch_size, (i + 1) * batch_size)],
+                        device="cuda")
+        return trainer.train_step(b.imgs[-1], b.captions, b.cap_lens, b.class_ids)
+    float(step(0)["total"])  # warm-up, outside the trace
+    wrappers = _kernel_wrappers()
+    reset_launches(wrappers)
+    log_dir = os.path.join(out, "trace")
+    with trace(log_dir):
+        for i in range(steps):
+            logs = step(i)
+        float(logs["total"])
+    launches = read_launches(wrappers)
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    # the host's ranges; the card's timeline repeats a range that holds
+    # device work as a "gpu_user_annotation"
+    data = sum(e.get("name") == "data" and e.get("cat") == "user_annotation"
+               for e in events)
+    data_on_card = sum(e.get("name") == "data" and e.get("cat") == "gpu_user_annotation"
+                       for e in events)
+    kernels = {k: sum(KERNEL_NAMES[k] in n for n in names)
+               for k in ("damsm_sim_fwd", "damsm_sim_dimg", "damsm_sim_dwords")}
+    say("profiling", steps=steps, batch=batch_size, trace_files=len(files),
+        trace_mb=os.path.getsize(files[0]) / 1e6, events=len(events), data_ranges=data,
+        data_ranges_on_card=data_on_card, kernel_events=kernels, launches=launches,
+        seconds=time.perf_counter() - t0)
+    if not (len(files) == 1 and data == steps
+            and all(kernels[k] == launches[k] == steps for k in kernels)):
+        raise AssertionError(f"profiling: {len(files)} trace files, {data} data ranges "
+                             f"(want {steps}), kernel events {kernels}, launches {launches}")
+    return launches
 
 
 def _yaml_cfg(path, out, **top):
@@ -2015,8 +2320,7 @@ BERT_TOL = 1e-4
 # further from it than BF16_FACTOR (2) times the CPU's float32, and within
 # the bound above or that.
 PRETRAIN_BERT_TOL = {"logs": 1e-4, "grads": 1e-3, "stats": 1e-4, "clip": 1e-4}
-BERT_PRETRAIN_LAUNCHES = {"word_attention": 0, "damsm_sim_fwd": 1, "damsm_sim_dimg": 1,
-                          "damsm_sim_dwords": 1}
+BERT_PRETRAIN_LAUNCHES = PRETRAIN_STEP_LAUNCHES
 
 
 def bert_captions(batch_size, t, vocab, seed):
@@ -2058,19 +2362,34 @@ def phase_bert_encoder(batch_size=8, t=20):
                              f"padding zero {pad_zero}")
 
 
-def phase_gan_step_bert(batch_size=8):
+def gan_step_bert_cpu_refs(batch_size=8):
+    """The CPU's runs of the gan_step_bert phase: the bird_bert step's
+    (:func:`gan_step_cpu_runs`) and the bird_mixing step's, with their
+    inputs; launches not counted, so that they run in a thread beside
+    phases that count."""
+    bert_inputs = gan_step_inputs(SEED, batch_size, BERT_CFG)
+    mixing_inputs = gan_step_inputs(SEED, batch_size, MIXING_CFG)
+    return {"bert_inputs": bert_inputs, "bert_cpu": gan_step_cpu_runs(bert_inputs, False),
+            "mixing_inputs": mixing_inputs,
+            "mixing_cpu": gan_step_run(*mixing_inputs, "cpu", count=False)}
+
+
+def phase_gan_step_bert(refs, batch_size=8):
     """The bird_bert step (:func:`phase_gan_step` with its preset: the same
     readings and bounds against the CPU's float64 step, K4 2, K1 1, K2 1, K3
     0); then one bird_mixing step ((2, B, Z) noise) on the card and on the
-    CPU (TF32 off): finite logs within GAN_STEP_TOL's, the same launches."""
+    CPU (TF32 off): finite logs within GAN_STEP_TOL's, the card's launches
+    those of the step.  ``refs``: :func:`gan_step_bert_cpu_refs`, made
+    beside earlier phases."""
     from sba_gan_tpu_torch.train.gan import log_keys
 
-    launches, runs = phase_gan_step(batch_size, BERT_CFG, "gan_step_bert")
+    launches, runs = phase_gan_step(batch_size, BERT_CFG, "gan_step_bert",
+                                    refs["bert_inputs"], refs["bert_cpu"])
     del runs
-    cfg, models, batch, z, eps = gan_step_inputs(SEED, batch_size, MIXING_CFG)
+    cfg, models, batch, z, eps = refs["mixing_inputs"]
     with tf32(cudnn=False, matmul=False):
         card = gan_step_run(cfg, models, batch, z, eps, "cuda")
-        cpu = gan_step_run(cfg, models, batch, z, eps, "cpu")
+    cpu = refs["mixing_cpu"]
     keys = log_keys(cfg.TREE.BRANCH_NUM)
     err = max(abs(card["logs"][k] - cpu["logs"][k]) / abs(cpu["logs"][k]) for k in keys)
     say("gan_step_mixing", batch=batch_size, noise=list(z.shape), logs_cuda=card["logs"],
@@ -2079,8 +2398,7 @@ def phase_gan_step_bert(batch_size=8):
         step_s={"cuda": card["seconds"], "cpu": cpu["seconds"]})
     if not (cfg.TRAIN.MIXING and z.dim() == 3 and err <= GAN_STEP_TOL["logs"]
             and all(np.isfinite(v) for v in card["logs"].values())
-            and card["launches"] == GAN_STEP_LAUNCHES
-            and cpu["launches"] == dict.fromkeys(GAN_KERNELS, 0)):
+            and card["launches"] == GAN_STEP_LAUNCHES and cpu["launches"] is None):
         raise AssertionError(f"gan_step_mixing: logs {err}, launches {card['launches']}")
     return launches, card["launches"]
 
@@ -2114,18 +2432,13 @@ def _group_rel_errs(got: dict, want: dict) -> dict:
     return {n: (g.cpu() - want[n].cpu()).abs().max().item() / scale for n, g in got.items()}
 
 
-def phase_pretrain_step_bert(batch_size=32):
-    """One full-width DAMSM/bird_bert train step (bert-base, Inception at
-    299, T 20) on the card against the CPU from the same weights and batch,
-    TF32 off: losses, every BERT gradient after the clip, the Mixed_7a/b/c
-    and head gradients, running statistics; K1, K2 and K3 once each on the
-    card.  Before the step, on both: the words' gradient (finite, exactly 0
-    at padding) and the text gradient's norm, against which the clip is
-    checked."""
+def pretrain_bert_inputs(batch_size=32):
+    """The pretrain_step_bert phase's config, models (random weights from
+    SEED), batch and padding mask, on the CPU."""
     from sba_gan_tpu_torch.config import cfg_from_file
     from sba_gan_tpu_torch.data.cub import SyntheticDataset
     from sba_gan_tpu_torch.data.pipeline import collate
-    from sba_gan_tpu_torch.train.damsm import LOG_KEYS, DAMSMTrainer, build_damsm_models
+    from sba_gan_tpu_torch.train.damsm import build_damsm_models
 
     cfg = cfg_from_file(BERT_PRETRAIN_CFG)
     cfg.TRAIN.BATCH_SIZE = batch_size
@@ -2135,42 +2448,74 @@ def phase_pretrain_step_bert(batch_size=32):
                           n_words=N_WORDS, seed=SEED)
     batch = collate([ds[i] for i in range(batch_size)])
     pad = torch.arange(cfg.TEXT.WORDS_NUM)[None, :] >= batch.cap_lens[:, None]
+    return cfg, models, batch, pad
+
+
+def pretrain_bert_run(inputs, device, dtype=torch.float32, count=True):
+    """One DAMSM/bird_bert train step of :func:`pretrain_bert_inputs` on
+    ``device`` in ``dtype`` (TF32 as the caller set it): logs, gradients,
+    statistics, the clip and the words' gradient at padding; the launches
+    counted from 0 (None without ``count``, for a CPU run beside phases
+    that count)."""
+    from sba_gan_tpu_torch.train.damsm import DAMSMTrainer
+
+    cfg, models, batch, pad = inputs
     wrappers = _kernel_wrappers()
-    runs = {}
+    mine = copy.deepcopy(models)
+    for m in mine:
+        m.to(dtype)
+    trainer = DAMSMTrainer(cfg, mine, device=device)
+    img = batch.imgs[-1].to(device, dtype)
+    raw_norm, words_grad = _bert_raw_grads(trainer, batch._replace(imgs=[img]), device)
+    if count:
+        reset_launches(wrappers)
+    t0 = time.perf_counter()
+    logs = trainer.train_step(img, batch.captions.to(device),
+                              batch.cap_lens, batch.class_ids.to(device))
+    logs = {k: float(v) for k, v in logs.items()}
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers) if count else None
+    text = {n: p.grad for n, p in trainer.text_encoder.named_parameters()}
+    image = {n: p.grad for n, p in trainer.image_encoder.named_parameters()
+             if p.grad is not None}
+    clipped = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in text.values()])).item()
+    stats = {n: b for n, b in trainer.image_encoder.state_dict().items()
+             if n.endswith(("running_mean", "running_var"))}
+    return dict(
+        logs=logs, text=text, image=image, stats=stats, launches=launches,
+        seconds=seconds, raw_norm=raw_norm, clipped_norm=clipped,
+        clip_err=abs(clipped - min(raw_norm, cfg.TRAIN.RNN_GRAD_CLIP))
+        / min(raw_norm, cfg.TRAIN.RNN_GRAD_CLIP),
+        finite=all(torch.isfinite(g).all().item() for g in text.values())
+        and bool(torch.isfinite(words_grad).all()),
+        pad_grad_zero=bool(torch.all(words_grad[pad] == 0)),
+        real_grad_nonzero=bool(torch.all(words_grad[~pad].abs().sum(-1) > 0)))
+
+
+def pretrain_bert_cpu_runs(inputs):
+    """The CPU's float32 and float64 runs of :func:`pretrain_bert_run`,
+    launches not counted, so that they run in a thread beside phases that
+    count."""
+    return {"cpu": pretrain_bert_run(inputs, "cpu", count=False),
+            "cpu64": pretrain_bert_run(inputs, "cpu", torch.float64, False)}
+
+
+def phase_pretrain_step_bert(inputs, cpu):
+    """One full-width DAMSM/bird_bert train step (bert-base, Inception at
+    299, T 20) on the card against the CPU from the same weights and batch,
+    TF32 off: losses, every BERT parameter's gradient after the clip, the
+    Mixed_7a/b/c and head gradients, running statistics; K1, K2 and K3 once
+    each on the card.  Before the step, on both: the words' gradient (finite,
+    exactly 0 at padding) and the text gradient's norm, against which the
+    clip is checked.  ``inputs`` and ``cpu``: :func:`pretrain_bert_inputs`
+    and its :func:`pretrain_bert_cpu_runs`, made beside earlier phases."""
+    from sba_gan_tpu_torch.train.damsm import LOG_KEYS
+
+    cfg = inputs[0]
+    batch_size = cfg.TRAIN.BATCH_SIZE
     with tf32(cudnn=False, matmul=False):
-        for name, device, dtype in (("cuda", "cuda", torch.float32),
-                                    ("cpu", "cpu", torch.float32),
-                                    ("cpu64", "cpu", torch.float64)):
-            mine = copy.deepcopy(models)
-            for m in mine:
-                m.to(dtype)
-            trainer = DAMSMTrainer(cfg, mine, device=device)
-            img = batch.imgs[-1].to(device, dtype)
-            raw_norm, words_grad = _bert_raw_grads(trainer, batch._replace(imgs=[img]),
-                                                   device)
-            reset_launches(wrappers)
-            t0 = time.perf_counter()
-            logs = trainer.train_step(img, batch.captions.to(device),
-                                      batch.cap_lens, batch.class_ids.to(device))
-            logs = {k: float(v) for k, v in logs.items()}
-            seconds = time.perf_counter() - t0
-            launches = read_launches(wrappers)
-            text = {n: p.grad for n, p in trainer.text_encoder.named_parameters()}
-            image = {n: p.grad for n, p in trainer.image_encoder.named_parameters()
-                     if p.grad is not None}
-            clipped = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g) for g in text.values()])).item()
-            stats = {n: b for n, b in trainer.image_encoder.state_dict().items()
-                     if n.endswith(("running_mean", "running_var"))}
-            runs[name] = dict(
-                logs=logs, text=text, image=image, stats=stats, launches=launches,
-                seconds=seconds, raw_norm=raw_norm, clipped_norm=clipped,
-                clip_err=abs(clipped - min(raw_norm, cfg.TRAIN.RNN_GRAD_CLIP))
-                / min(raw_norm, cfg.TRAIN.RNN_GRAD_CLIP),
-                finite=all(torch.isfinite(g).all().item() for g in text.values())
-                and bool(torch.isfinite(words_grad).all()),
-                pad_grad_zero=bool(torch.all(words_grad[pad] == 0)),
-                real_grad_nonzero=bool(torch.all(words_grad[~pad].abs().sum(-1) > 0)))
+        runs = {"cuda": pretrain_bert_run(inputs, "cuda"), **cpu}
     gpu, cpu, cpu64 = runs["cuda"], runs["cpu"], runs["cpu64"]
     image = {k: _group_rel_errs(runs[k]["image"], cpu64["image"]) for k in ("cuda", "cpu")}
     image_card = _group_rel_errs(gpu["image"], cpu["image"])
@@ -2213,18 +2558,24 @@ def phase_pretrain_step_bert(batch_size=32):
         raise AssertionError("pretrain_step_bert: BERT gradients not finite, or the "
                              "words' gradient not 0 at padding")
     if gpu["launches"] != BERT_PRETRAIN_LAUNCHES or any(
-            v for r in (cpu, cpu64) for v in r["launches"].values()):
+            r["launches"] is not None for r in (cpu, cpu64)):
         raise AssertionError(f"pretrain_step_bert: launches {gpu['launches']} "
                              f"(want {BERT_PRETRAIN_LAUNCHES})")
     return gpu["launches"]
 
 
+# bench.measure's timed and traced steps for the lines that stand beside the
+# gan_bench phases' full ones (its defaults: 20 and 3)
+SHORT_BENCH = dict(steps=10, profiled=1)
+
+
 def phase_gan_bench_bert(style_lines):
     """``bench.measure`` on the flagship dims with the bird_bert keys
     (MODEL.TEXT_ENCODER bert, M_NUM 8, INIT_Z_CONCAT False; batch 128,
-    WORDS_NUM 18), in each dtype of ``style_lines`` (the bird_style bench
-    lines of this call, printed beside): images/s, device ms, launches, peak
-    memory, mfu and the text phase's device ms; K4 2, K1 1, K2 1 a step."""
+    WORDS_NUM 18; :data:`SHORT_BENCH`), in each dtype of ``style_lines``
+    (the bird_style bench lines of this call, printed beside): images/s,
+    device ms, launches, peak memory, mfu and the text phase's device ms;
+    K4 2, K1 1, K2 1 a step."""
     from sba_gan_tpu_torch import bench
     from sba_gan_tpu_torch.config import cfg_from_dict
 
@@ -2235,7 +2586,7 @@ def phase_gan_bench_bert(style_lines):
         d["GAN"].update(M_NUM=8, INIT_Z_CONCAT=False)
         cfg = cfg_from_dict(d)
         cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = dtype
-        line = bench.measure(cfg, cfg.TRAIN.BATCH_SIZE, torch.device("cuda"))
+        line = bench.measure(cfg, cfg.TRAIN.BATCH_SIZE, torch.device("cuda"), **SHORT_BENCH)
         named = line["profile"]["hand_written_kernels"]
         per_step = {k: named[k]["launches_per_step"] for k in GAN_KERNELS}
 
@@ -2758,14 +3109,15 @@ def collective_host_us(calls: int = 500) -> dict:
 
 
 def phase_gan_bench_dist(plain_b128: dict):
-    """``bench.measure`` (no phase split or FLOP count) at the flagship dims,
-    float32 at PyTorch's TF32 defaults, beside the gan_bench phase's line at
-    batch 128 (``plain_b128``, this call's): the plain step at batch 64,
-    GRAD_ACCUM 2 at batch 64 in 'window' and in 'dfresh' (an update of 128),
-    and the world of one over NCCL at 128 with the collectives' device ms
-    and the host time of one call of each.  Each line: images/s, ms a step,
-    device ms and launches a step, idle share, peak memory, the kernels'
-    launches a step (K4 2, K1 1, K2 1)."""
+    """``bench.measure`` (no phase split or FLOP count; :data:`SHORT_BENCH`)
+    at the flagship dims, float32 at PyTorch's TF32 defaults, beside the
+    gan_bench phase's line at batch 128 (``plain_b128``, this call's): the
+    plain step at batch 64, GRAD_ACCUM 2 at batch 64 in 'window' and in
+    'dfresh' (an update of 128, as the plain 128 line's), and the world of one
+    over NCCL at 128 with the collectives' device ms and the host time of
+    one call of each.  Each line: images/s, ms a step, device ms and
+    launches a step, idle share, peak memory, the kernels' launches a step
+    (K4 2, K1 1, K2 1)."""
     from sba_gan_tpu_torch import bench
     from sba_gan_tpu_torch.config import cfg_from_dict
 
@@ -2778,9 +3130,9 @@ def phase_gan_bench_dist(plain_b128: dict):
             ("nccl1_b128", 128, 1, "window", True)):
         cfg = cfg_from_dict(copy.deepcopy(bench.FLAGSHIP))
         cfg.TRAIN.GRAD_ACCUM, cfg.TRAIN.GRAD_ACCUM_MODE = accum, mode
-        with (nccl_world_of_one(cfg) if nccl else contextlib.nullcontext()):
+        with nccl_world_of_one(cfg) if nccl else contextlib.nullcontext():
             lines[label] = _bench_summary(bench.measure(cfg, batch, torch.device("cuda"),
-                                                        detail=False))
+                                                        detail=False, **SHORT_BENCH))
             if nccl:
                 lines[label]["collective_host_us"] = collective_host_us()
         gc.collect()
@@ -3076,8 +3428,8 @@ def phase_gan_step_dcgan(inputs, cpu, batch_size=8):
 
 
 def phase_gan_bench_dcgan(style_lines):
-    """``bench.measure`` (no phase split or FLOP count) with the
-    bird_attnDCGAN2 keys (R_NUM 0, lambda 1, one D; WORDS_NUM 18) at batch
+    """``bench.measure`` (no phase split or FLOP count; :data:`SHORT_BENCH`)
+    with the bird_attnDCGAN2 keys (R_NUM 0, lambda 1, one D; WORDS_NUM 18) at batch
     30 in float32 and bfloat16 and at batch 128 in float32, beside the
     bird_style lines of this call (``style_lines``): images/s, ms a step,
     device ms and launches a step, idle share, peak memory; K4 2, K1 1, K2 1
@@ -3093,7 +3445,7 @@ def phase_gan_bench_dcgan(style_lines):
         cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = dtype
         label = f"{dtype}_b{batch}"
         lines[label] = _bench_summary(bench.measure(cfg, batch, torch.device("cuda"),
-                                                    detail=False))
+                                                    detail=False, **SHORT_BENCH))
         gc.collect()
         torch.cuda.empty_cache()
         line = lines[label]
@@ -3125,6 +3477,7 @@ DAMSM_KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
 }
 PRETRAIN_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "sba_gan_tpu_torch", "configs", "DAMSM", "bird.yml")
+CPU_POOL_THREADS = 6  # of the card's machine's 8 cores, for the CPU's reference runs
 
 
 def main() -> int:
@@ -3142,52 +3495,74 @@ def main() -> int:
     damsm_rows16 = phase_damsm_kernels_bf16()
     cfg = preset("eval_bird")
     wordtoix, ixtoword = synthetic_vocab(N_WORDS)
-    sampler = phase_slice(cfg, wordtoix)
-    launches = phase_serve(cfg, sampler, wordtoix, ixtoword)
-    launches16 = phase_generation_bf16(cfg, wordtoix)
-    pretrain_runs = phase_pretrain_step(preset("DAMSM/bird"), batch_size=32)
-    pretrain16 = phase_pretrain_step_bf16(preset("DAMSM/bird"), 32, pretrain_runs)
-    with tempfile.TemporaryDirectory() as out:
-        pretrain_cli = phase_pretrain_cli(PRETRAIN_CFG, os.path.join(out, "damsm"))
-        launches.update((k, v) for k, v in pretrain_cli.items() if k in DAMSM_KERNELS)
-        gan_launches, gan_runs = phase_gan_step()
-        gan_launches16 = phase_gan_step_bf16(gan_runs)
-        del gan_runs
-        style_lines = {"float32": phase_gan_bench(), "bfloat16": phase_gan_bench_bf16()}
-        phase_gan_cli(os.path.join(out, "damsm", "Model"), out)
-        tree = os.path.join(out, "birds")
-        n_words = phase_cub_tree(tree)
-        phase_cub_train(tree, out)
-        net_g, net_e = write_reference_checkpoints(
-            os.path.join(out, "gan", "Model"), os.path.join(out, "damsm", "Model"),
-            n_words, out)
-        eval_launches = phase_eval_sampling(tree, net_g, net_e, n_words, out)
-        gen_launches = phase_gen_example(tree, net_g, net_e, out)
-        reproduce_launches = phase_reproduce(tree, net_g, net_e, out)
-        phase_bert_encoder()
-        bert_gan_launches, mixing_launches = phase_gan_step_bert()
-        bert_pretrain_launches = phase_pretrain_step_bert()
-        bert_bench_launches = phase_gan_bench_bert(style_lines)
-        bert_cli_pretrain_launches, bert_cli_gan_launches = phase_bert_cli(out)
-        from concurrent.futures import ThreadPoolExecutor
+    damsm_cfg = preset("DAMSM/bird")
+    from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(1) as pool:  # the CPU's float64 window beside two phases
+    # one thread computes the CPU's reference runs (on CPU_POOL_THREADS of
+    # torch's threads, a setting of that thread) beside phases whose host
+    # time is no metric: the GAN step's beside the pretraining phases, the
+    # BERT steps' beside the GAN and BERT CLIs, the accumulation window's
+    # beside the ranks, the DCGAN step's beside the torchrun and DCGAN CLIs
+    cpu_pool = ThreadPoolExecutor(1, initializer=torch.set_num_threads,
+                                  initargs=(CPU_POOL_THREADS,))
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            sampler = phase_slice(cfg, wordtoix)
+            launches = phase_serve(cfg, sampler, wordtoix, ixtoword)
+            launches16 = phase_generation_bf16(cfg, wordtoix)
+            gan_inputs = gan_step_inputs()
+            gan_cpu = cpu_pool.submit(gan_step_cpu_runs, gan_inputs, False)
+            pretrain_runs = phase_pretrain_step(damsm_cfg, batch_size=32)
+            pretrain16 = phase_pretrain_step_bf16(damsm_cfg, 32, pretrain_runs)
+            chunks_launches = phase_pretrain_step_chunks(damsm_cfg, 32, pretrain_runs)
+            del pretrain_runs
+            pretrain_cli = phase_pretrain_cli(PRETRAIN_CFG, os.path.join(out, "damsm"))
+            launches.update((k, v) for k, v in pretrain_cli.items() if k in DAMSM_KERNELS)
+            profiling_launches = phase_profiling(damsm_cfg, out)
+            gan_launches, gan_runs = phase_gan_step(inputs=gan_inputs, cpu=gan_cpu.result())
+            gan_launches16 = phase_gan_step_bf16(gan_runs)
+            del gan_runs, gan_inputs, gan_cpu
+            chunks_memory = phase_pretrain_chunks_memory(damsm_cfg)
+            style_lines = {"float32": phase_gan_bench(), "bfloat16": phase_gan_bench_bf16()}
+            tree = os.path.join(out, "birds")
+            n_words, pil_rates = phase_cub_tree(tree)
+            phase_native_loader(tree, pil_rates)
+            bert_refs = cpu_pool.submit(gan_step_bert_cpu_refs)
+            bert_pretrain_inputs = pretrain_bert_inputs()
+            bert_pretrain_cpu = cpu_pool.submit(pretrain_bert_cpu_runs, bert_pretrain_inputs)
+            phase_gan_cli(os.path.join(out, "damsm", "Model"), out)
+            phase_cub_train(tree, out)
+            bert_cli_pretrain_launches, bert_cli_gan_launches = phase_bert_cli(out)
+            phase_bert_encoder()
+            bert_gan_launches, mixing_launches = phase_gan_step_bert(bert_refs.result())
+            bert_pretrain_launches = phase_pretrain_step_bert(bert_pretrain_inputs,
+                                                              bert_pretrain_cpu.result())
+            del bert_refs, bert_pretrain_inputs, bert_pretrain_cpu
+            net_g, net_e = write_reference_checkpoints(
+                os.path.join(out, "gan", "Model"), os.path.join(out, "damsm", "Model"),
+                n_words, out)
+            eval_launches = phase_eval_sampling(tree, net_g, net_e, n_words, out)
+            gen_launches = phase_gen_example(tree, net_g, net_e, out)
+            reproduce_launches = phase_reproduce(tree, net_g, net_e, out)
+            bert_bench_launches = phase_gan_bench_bert(style_lines)
             inputs = accum_inputs()
-            cpu_window = pool.submit(accum_cpu_window, inputs)
+            cpu_window = cpu_pool.submit(accum_cpu_window, inputs)
             gloo2_launches = phase_dist_gloo2()
             nccl1_launches = phase_dist_nccl1()
             accum_launches = phase_grad_accum(inputs, cpu_window.result())
-        bench_dist_launches = phase_gan_bench_dist(style_lines["float32"])
-        with ThreadPoolExecutor(1) as pool:  # the DCGAN step's CPU runs beside four phases
+            del inputs, cpu_window
+            bench_dist_launches = phase_gan_bench_dist(style_lines["float32"])
             dcgan_inputs = gan_step_inputs(SEED, 8, DCGAN_CFG)
-            dcgan_cpu = pool.submit(gan_step_cpu_runs, dcgan_inputs, False)
+            dcgan_cpu = cpu_pool.submit(gan_step_cpu_runs, dcgan_inputs, False)
             phase_dist_cli(out)
             dcgan_cli_launches, dcgan_cub_launches = phase_dcgan_cli(
                 os.path.join(out, "damsm", "Model"), out, tree)
             dcgan_serve_launches = phase_serve_dcgan(wordtoix, ixtoword, out)
             dcgan_step_launches = phase_gan_step_dcgan(dcgan_inputs, dcgan_cpu)
             del dcgan_inputs, dcgan_cpu
-        dcgan_bench_launches = phase_gan_bench_dcgan(style_lines)
+            dcgan_bench_launches = phase_gan_bench_dcgan(style_lines)
+    finally:
+        cpu_pool.shutdown(wait=True, cancel_futures=True)
     dist_paths = {  # each kernel's launches on the data-parallel and accumulation paths
         k: {"grad_accum_micro_steps": {m: [c[k] for c in v] for m, v in accum_launches.items()},
             "nccl_world_of_one_3_steps_float32": nccl1_launches["float32"][k],
@@ -3202,6 +3577,11 @@ def main() -> int:
             "dcgan_cub_train_2_steps": dcgan_cub_launches[k],
             "dcgan_serve_generation": dcgan_serve_launches.get(k, 0)}
         for k in GAN_KERNELS}
+    chunks_paths = {  # K1-K3's launches on the JAX.DAMSM_CHUNKS and profiling paths
+        k: {"pretrain_step_chunks": chunks_launches[k],
+            "pretrain_chunks_memory_per_step": {b: v[k] for b, v in chunks_memory.items()},
+            "profiling_3_steps": profiling_launches[k]}
+        for k in DAMSM_KERNELS}
     bert_paths = {  # each kernel's launches on the BERT paths
         k: {"bird_bert_gan_step": bert_gan_launches[k],
             "bird_mixing_gan_step": mixing_launches[k],
@@ -3261,6 +3641,7 @@ def main() -> int:
             "bert_paths": bert_paths[kname],
             "dist_paths": dist_paths[kname],
             "dcgan_paths": dcgan_paths[kname],
+            "chunks_paths": chunks_paths[kname],
         })
     row16, gan_rows16 = rows16
     kernels.append({

@@ -243,10 +243,11 @@ def component_ms(step, args_, repeats: int) -> Dict[str, float]:
     return out
 
 
-def run(cfg, batch: int, device, detail: bool = True) -> Dict:
-    """The step at global batch ``batch``: the timed window and the
-    profile; with ``detail`` also the phases, the G and Inception passes
-    alone and the FLOP count (and mfu)."""
+def run(cfg, batch: int, device, detail: bool = True, steps: int = STEPS,
+        profiled: int = PROFILE_STEPS) -> Dict:
+    """The step at global batch ``batch``: the timed window of ``steps``
+    steps and the profile of ``profiled``; with ``detail`` also the phases,
+    the G and Inception passes alone and the FLOP count (and mfu)."""
     cfg = copy.deepcopy(cfg)
     cfg.TRAIN.BATCH_SIZE = batch
     cuda = device.type == "cuda"
@@ -260,9 +261,9 @@ def run(cfg, batch: int, device, detail: bool = True) -> Dict:
         logs = step(*args_)
     float(logs["errG"])
     warmup_s = time.perf_counter() - t0
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(STEPS + 1)] if cuda else []
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)] if cuda else []
     t0 = time.perf_counter()
-    for i in range(STEPS):
+    for i in range(steps):
         if cuda:
             marks[i].record()
         logs = step(*args_)
@@ -271,9 +272,9 @@ def run(cfg, batch: int, device, detail: bool = True) -> Dict:
     float(logs["errG"])  # closes the window: errG depends on all of the step's work
     window_s = time.perf_counter() - t0
     out = {"batch": batch, "ranks": dist.world_size(), "grad_accum": cfg.TRAIN.GRAD_ACCUM,
-           "accum_mode": cfg.TRAIN.GRAD_ACCUM_MODE, "steps": STEPS, "warmup": WARMUP,
-           "warmup_s": warmup_s, "window_s": window_s, "ms_per_step": window_s * 1e3 / STEPS,
-           "images_per_sec": STEPS * batch / window_s}
+           "accum_mode": cfg.TRAIN.GRAD_ACCUM_MODE, "steps": steps, "warmup": WARMUP,
+           "warmup_s": warmup_s, "window_s": window_s, "ms_per_step": window_s * 1e3 / steps,
+           "images_per_sec": steps * batch / window_s}
     if cuda:  # each step's span on the device's timeline, between its events
         step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
         out.update(step_ms_median=statistics.median(step_ms), step_ms_min=min(step_ms),
@@ -284,12 +285,12 @@ def run(cfg, batch: int, device, detail: bool = True) -> Dict:
                finite=all(v == v and abs(v) != float("inf") for v in values.values()))
     if cuda:
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        out["profile"] = profile_steps(step, args_, PROFILE_STEPS)
+        out["profile"] = profile_steps(step, args_, profiled)
     if not detail:
         return out
     if cuda:
-        out["phase_device_ms"] = phase_ms(step, args_, PROFILE_STEPS)
-        out["component_device_ms"] = component_ms(step, args_, PROFILE_STEPS)
+        out["phase_device_ms"] = phase_ms(step, args_, profiled)
+        out["component_device_ms"] = component_ms(step, args_, profiled)
     from torch.utils.flop_counter import FlopCounterMode
 
     counter = FlopCounterMode(display=False)
@@ -300,7 +301,7 @@ def run(cfg, batch: int, device, detail: bool = True) -> Dict:
     out.update(flops_per_step=flops, flop_counter_flops=counter.get_total_flops(),
                hand_written_kernel_flops=custom)
     if cuda:
-        seconds = window_s / STEPS
+        seconds = window_s / steps
         if cfg.JAX.DTYPE == "bfloat16":
             peak, name = BF16_FLOPS_PER_S, "bf16 (H100 SXM dense peak)"
         else:
@@ -329,13 +330,15 @@ def precision(cfg) -> Dict[str, str]:
             "losses": "float32", "parameters_adam_ema": "float32"}
 
 
-def measure(cfg, batch: int, device, detail: bool = True) -> Dict:
-    """:func:`run` at ``batch``; on running out of card memory, the peak it
-    reached is recorded and the next smaller batch of FALLBACK_BATCHES runs."""
+def measure(cfg, batch: int, device, detail: bool = True, steps: int = STEPS,
+            profiled: int = PROFILE_STEPS) -> Dict:
+    """:func:`run` at ``batch`` (``steps`` timed, ``profiled`` traced); on
+    running out of card memory, the peak it reached is recorded and the next
+    smaller batch of FALLBACK_BATCHES runs."""
     oom = []
     for b in (batch,) + tuple(x for x in FALLBACK_BATCHES if x < batch):
         try:
-            result = run(cfg, b, device, detail)
+            result = run(cfg, b, device, detail, steps, profiled)
         except torch.cuda.OutOfMemoryError as e:
             oom.append({"batch": b, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                         "error": str(e).splitlines()[0]})

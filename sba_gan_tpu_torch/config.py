@@ -22,12 +22,11 @@ here.  In particular ``DAMSM_SIM_IMPL``, ``DAMSM_SIM_TILE``,
 ``REMAT_IMAGE_ENCODER*`` are XLA/TPU levers that give the same values:
 which implementation runs is decided by the device of the tensors (CUDA
 kernel on the card, plain PyTorch on the CPU), not by a key.
-``DAMSM_CHUNKS`` gives the same values in the GAN step only, whose
-Inception is frozen in eval mode, so the GAN step accepts it; in DAMSM
-pretraining the JAX package runs the train-mode Inception over that many
-sequential sub-batches, whose BatchNorm statistics differ from one pass,
-and the port's ``DAMSMTrainer`` raises ``NotImplementedError`` for a value
-above 1 (not ported; ROADMAP.md, queue 1).
+``DAMSM_CHUNKS`` gives the same values in the GAN step, whose Inception is
+frozen in eval mode; in DAMSM pretraining the train-mode Inception runs
+over that many sequential sub-batches, each with its own BatchNorm
+statistics, as in the JAX package (``train.damsm.DAMSMTrainer``; one
+process only: across ranks it raises ``NotImplementedError``).
 """
 
 from __future__ import annotations

@@ -12,7 +12,13 @@ caption, caption subsample, in that order) from
 whatever the number of loader workers, and bit-identical to the JAX
 package's.  ``vocab='bert'`` reads the captions as BERT wordpieces
 (``captions_bert.pickle``, :func:`data.vocab.load_or_build_captions_bert`).
-Its native JPEG loader is not ported and raises.
+``loader='native'`` (``MODEL.IMAGE_LOADER``) reads JPEGs through the C++
+pipeline of :mod:`data.native_loader`: the geometry (the bounding-box
+square, the 76/64 pre-size, the crop and flip from the item's generator) is
+computed here, the pixels there, as in the JAX package's native path, whose
+items it gives bit for bit; other files still go through PIL.  Where the
+library cannot be built (no ``g++`` or libjpeg) the reader raises
+``RuntimeError`` and does not fall back to PIL.
 
 :class:`SyntheticDataset` is the port's copy of the JAX package's
 ``SyntheticDataset``: item ``index`` is drawn from
@@ -93,10 +99,13 @@ class TextImageDataset:
     ):
         if vocab not in ("word", "bert"):
             raise ValueError(f"vocab must be 'word' or 'bert', got {vocab!r}")
-        if loader != "pil":
-            raise NotImplementedError(
-                f"loader={loader!r} (MODEL.IMAGE_LOADER): the native JPEG loader "
-                "is not ported (ROADMAP.md, queue 1, item 2); use 'pil'")
+        if loader not in ("pil", "native"):
+            raise ValueError(f"loader must be 'pil' or 'native', got {loader!r}")
+        self._native = None
+        if loader == "native":
+            from sba_gan_tpu_torch.data.native_loader import NativeImageLoader
+
+            self._native = NativeImageLoader()
         self.data_dir = data_dir
         self.split = split
         self.branch_num = branch_num
@@ -134,10 +143,44 @@ class TextImageDataset:
                                 key + ".jpg")
         return os.path.join(self.data_dir, "images", key + ".jpg")
 
-    def __getitem__(self, index: int):
-        key = self.filenames[index]
-        rng = np.random.default_rng([self._seed, self._epoch, index])
-        with Image.open(self._image_path(key)) as f:
+    def _load_native(self, path: str, key: str, rng: np.random.Generator):
+        """The item's images through the C++ pipeline: the bounding-box
+        square (0.75 of its larger side from its center, clipped to the
+        image), the shorter side resized to 76/64 of the final size, the
+        final-size crop (random with a random flip in training, centered
+        otherwise), then each branch size (the final one alone under
+        ``b_dcgan``)."""
+        with Image.open(path) as im:
+            w, h = im.size  # the header only
+        bbox_rect = None
+        if self.bbox is not None:
+            bx, by, bw, bh = self.bbox[key]
+            r = int(max(bw, bh) * 0.75)
+            cx, cy = int((2 * bx + bw) / 2), int((2 * by + bh) / 2)
+            x1, y1 = max(0, cx - r), max(0, cy - r)
+            x2, y2 = min(w, cx + r), min(h, cy + r)
+            bbox_rect = (x1, y1, x2 - x1, y2 - y1)
+            w, h = x2 - x1, y2 - y1
+        final = self.imsize[-1]
+        target = int(final * 76 / 64)
+        if w <= h:
+            new_w, new_h = target, max(1, int(round(target * h / w)))
+        else:
+            new_w, new_h = max(1, int(round(target * w / h))), target
+        if self.train_mode:
+            x = int(rng.integers(0, new_w - final + 1))
+            y = int(rng.integers(0, new_h - final + 1))
+            hflip = bool(rng.random() < 0.5)
+        else:
+            x, y = (new_w - final) // 2, (new_h - final) // 2
+            hflip = False
+        sizes = [final] if self.b_dcgan else list(self.imsize)
+        return self._native.load(path, sizes=sizes, bbox=bbox_rect,
+                                 pre_size=(new_w, new_h), crop2=(x, y, final, final),
+                                 hflip=hflip)
+
+    def _load_pil(self, path: str, key: str, rng: np.random.Generator):
+        with Image.open(path) as f:
             img = f.convert("RGB")
         if self.bbox is not None:
             img = T.bbox_crop(img, self.bbox[key])
@@ -147,9 +190,17 @@ class TextImageDataset:
         else:
             img = T.eval_transform(img, final_size)
         if self.b_dcgan:
-            imgs = [T.normalize_to_unit(img)]
+            return [T.normalize_to_unit(img)]
+        return T.multiscale_branches(img, self.imsize)
+
+    def __getitem__(self, index: int):
+        key = self.filenames[index]
+        rng = np.random.default_rng([self._seed, self._epoch, index])
+        path = self._image_path(key)
+        if self._native is not None and path.lower().endswith((".jpg", ".jpeg")):
+            imgs = self._load_native(path, key, rng)
         else:
-            imgs = T.multiscale_branches(img, self.imsize)
+            imgs = self._load_pil(path, key, rng)
 
         sent_ix = int(rng.integers(0, self.embeddings_num))
         caps, cap_len = pad_caption(self.captions[index * self.embeddings_num + sent_ix],

@@ -19,8 +19,15 @@ jointly on the words and sentence losses (the JAX package's
 * each epoch re-creates both optimizers (moments reset) with the learning
   rate of :func:`epoch_lr` (x0.98 per epoch while above a tenth of the
   base), as the reference does;
-* ``JAX.DAMSM_CHUNKS`` above 1 (the JAX trainer's sequential sub-batches
-  of the train-mode Inception) raises: not ported.
+* ``JAX.DAMSM_CHUNKS`` = c above 1 runs the train step's Inception over c
+  sequential sub-batches of b / c rows (contiguous blocks, in order), as
+  the JAX trainer's ``lax.scan``: each sub-batch is normalized by its own
+  BatchNorm statistics, and the running statistics move once per
+  sub-batch, in order; ``region`` and ``code`` are concatenated, and the
+  losses (K1-K3 once), the clip and both Adams see the whole batch.  The
+  eval step stays one pass.  A batch that c does not divide raises
+  ``ValueError``.  Torch keeps no activations of the frozen trunk for the
+  backward, so the lever lowers only the forward's peak here.
 
 The similarity of the words loss goes through kernels K1-K3 on the card,
 with ``JAX.LOSS_DTYPE`` as their ``mm_dtype``; the encoders compute in
@@ -32,6 +39,9 @@ K1, K2 and K3 on this rank's images), the Inception's train-mode
 BatchNorms take the global statistics, the dropout mask is drawn for the
 global batch and sliced, and both sides' gradients are summed over ranks
 before the clip, which so sees the global gradient, as optax's does.
+``DAMSM_CHUNKS`` above 1 raises ``NotImplementedError`` there: the JAX
+trainer's sub-batches are blocks of the global batch, which do not line up
+with the ranks' rows.
 """
 
 from __future__ import annotations
@@ -108,11 +118,12 @@ class DAMSMTrainer:
     generator; host code drives the epochs."""
 
     def __init__(self, cfg, models: DAMSMModels, device="cuda"):
-        if cfg.JAX.DAMSM_CHUNKS > 1:
+        self.chunks = int(cfg.JAX.DAMSM_CHUNKS)
+        if self.chunks > 1 and dist.world_size() > 1:
             raise NotImplementedError(
-                f"JAX.DAMSM_CHUNKS={cfg.JAX.DAMSM_CHUNKS}: pretraining over sequential "
-                "sub-batches of the train-mode Inception (their own BatchNorm statistics) "
-                "is not ported (ROADMAP.md, queue 1, item 4); use 1")
+                f"JAX.DAMSM_CHUNKS={self.chunks} across {dist.world_size()} ranks: the "
+                "sub-batches are blocks of the global batch, which the ranks' rows do not "
+                "line up with; not ported (ROADMAP.md, queue 1)")
         self.mm_dtype = loss_dtype(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -141,9 +152,20 @@ class DAMSMTrainer:
         self.image_opt = torch.optim.Adam(self.image_params, **adam)
         return lr
 
-    def _losses(self, img, captions, cap_lens, class_ids, keep_mask=None):
+    def _image_features(self, img, chunks: int):
+        """(region, code) of ``img``, the Inception run over ``chunks``
+        sequential sub-batches (the JAX trainer's scan)."""
+        if chunks == 1:
+            return self.image_encoder(img)
+        b = img.shape[0]
+        if b % chunks:
+            raise ValueError(f"JAX.DAMSM_CHUNKS={chunks} does not divide the batch {b}")
+        regions, codes = zip(*(self.image_encoder(part) for part in img.split(b // chunks)))
+        return torch.cat(regions), torch.cat(codes)
+
+    def _losses(self, img, captions, cap_lens, class_ids, keep_mask=None, chunks=1):
         g1, g2, g3 = self.gammas
-        region, code = self.image_encoder(img)
+        region, code = self._image_features(img, chunks)
         if isinstance(self.text_encoder, RNNEncoder):
             words_emb, sent_emb = self.text_encoder(
                 captions, cap_lens, keep_mask=keep_mask, generator=self.dropout_gen)
@@ -165,7 +187,8 @@ class DAMSMTrainer:
         self.image_encoder.train()
         self.text_opt.zero_grad(set_to_none=True)
         self.image_opt.zero_grad(set_to_none=True)
-        total, logs = self._losses(img, captions, cap_lens, class_ids, keep_mask)
+        total, logs = self._losses(img, captions, cap_lens, class_ids, keep_mask,
+                                   self.chunks)
         total.backward()
         dist.all_reduce_grads_([p.grad for p in self.text_params + self.image_params])
         clip_by_global_norm_([p.grad for p in self.text_params], self.grad_clip)

@@ -5,7 +5,13 @@ Training: epochs of shuffled batches, the loss line every ``LOG_EVERY``
 steps (the only host reads of the logs, besides the last step of each
 epoch, which the summary keeps), the EMA sample and attention grid every
 ``IMAGE_EVERY`` steps, a checkpoint every ``TRAIN.SNAPSHOT_INTERVAL``
-epochs and at the end, and resume from the latest checkpoint.
+epochs and at the end, and resume from the latest checkpoint.  The loss
+line's ms/batch and img/s come from a :class:`utils.profiling.StepTimer`
+ticked after every step (its clock starts after the first), as the JAX
+trainer's; at a log step the tick follows the read of the logs, so the
+window ends with the step's work on the device.  The sample rendering and
+the checkpoint writes are ``annotate`` ranges ("images", "checkpoint"), so
+that a ``utils.profiling.trace`` of training shows them.
 
 Across ranks (:mod:`parallel.dist`) each rank trains on its rows of every
 global batch; rank 0 alone prints, renders and writes checkpoints, and
@@ -49,6 +55,7 @@ from sba_gan_tpu_torch.train.sample import Sampler, noise_shape
 from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
 from sba_gan_tpu_torch.utils.image import save_image, to_uint8
 from sba_gan_tpu_torch.utils.platform import resolve_device
+from sba_gan_tpu_torch.utils.profiling import StepTimer, annotate
 from sba_gan_tpu_torch.utils.viz import build_super_images, build_super_images2
 
 LOG_EVERY = 100  # steps, as the JAX trainer
@@ -113,7 +120,7 @@ class GANTrainer:
         n_ds = len(self.state.discriminators)
         bs = cfg.TRAIN.BATCH_SIZE
         epochs = []
-        t_log, since_log = time.perf_counter(), 0
+        timer = StepTimer()
         for epoch in range(self.start_epoch, max_epoch):
             t0 = time.time()
             logs, steps = None, 0
@@ -121,18 +128,19 @@ class GANTrainer:
                 logs = self.step_fn(batch.imgs, batch.captions, batch.cap_lens,
                                     batch.class_ids)
                 steps += 1
-                since_log += 1
                 gstep = self.state.step
-                if gstep % LOG_EVERY == 0 and main:
+                log_now = gstep % LOG_EVERY == 0 and main
+                if log_now:
                     values = {k: float(v) for k, v in logs.items()}  # fences the window
-                    ms = (time.perf_counter() - t_log) * 1e3 / since_log
-                    t_log, since_log = time.perf_counter(), 0
+                timer.tick(bs)
+                if log_now:
                     d_str = " ".join(f"errD{i}: {values[f'errD{i}']:.2f}" for i in range(n_ds))
                     print(f"[{epoch}][{gstep}] {d_str} errG: {values['errG']:.2f} "
-                          f"kl: {values['kl_loss']:.4f} | {ms:.0f} ms/batch "
-                          f"{bs * 1e3 / ms:.1f} img/s", flush=True)
+                          f"kl: {values['kl_loss']:.4f} | {timer.ms_per_batch:.0f} ms/batch "
+                          f"{timer.images_per_sec():.1f} img/s", flush=True)
                 if gstep % IMAGE_EVERY == 0 and main:
-                    self.save_img_results(batch, gstep)
+                    with annotate("images"):
+                        self.save_img_results(batch, gstep)
             last = {k: float(logs[k]) for k in log_keys(n_ds)} if logs is not None else {}
             seconds = time.time() - t0
             if main:
@@ -140,9 +148,11 @@ class GANTrainer:
                       flush=True)
             epochs.append({"epoch": epoch, "steps": steps, "logs": last, "seconds": seconds})
             if (epoch + 1) % cfg.TRAIN.SNAPSHOT_INTERVAL == 0:
-                self.save_model(epoch)
+                with annotate("checkpoint"):
+                    self.save_model(epoch)
         if epochs:
-            self.save_model(max_epoch - 1)
+            with annotate("checkpoint"):
+                self.save_model(max_epoch - 1)
         return epochs
 
     @torch.no_grad()

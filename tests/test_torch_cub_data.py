@@ -5,8 +5,9 @@ that the subsample draws): items equal bit for bit (images, captions,
 lengths, class ids, keys) for train at epochs 0 and 1 and for test, and for
 the COCO layout without boxes; one caption cache read by both packages;
 the loader with reader threads equal to the serial one, errors reaching the
-consumer, the pool shut down when the iterator is dropped; what is not
-ported raising."""
+consumer, the pool shut down when the iterator is dropped; an unknown
+image loader and a missing BERT vocabulary raising (the native loader:
+tests/test_torch_native_loader.py)."""
 
 import os
 import pickle
@@ -188,12 +189,14 @@ def test_worker_errors_reach_the_consumer_and_the_pool_stops():
 
 
 def test_native_loader_and_bert_vocab_are_refused(mini_cub, tmp_path, monkeypatch):
-    """The native loader is not ported; the BERT vocabulary is refused
-    without its cached files (with them: tests/test_torch_bert_vocab.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TextImageDataset(mini_cub, loader="native", **KW)
-    cfg = cfg_from_dict({"DATA_DIR": mini_cub, "MODEL": {"IMAGE_LOADER": "native"}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """An image loader other than 'pil' and 'native' is refused (the native
+    one: tests/test_torch_native_loader.py, which also refuses it where its
+    library cannot be built); the BERT vocabulary is refused without its
+    cached files (with them: tests/test_torch_bert_vocab.py)."""
+    with pytest.raises(ValueError, match="loader must be 'pil' or 'native'"):
+        TextImageDataset(mini_cub, loader="turbo", **KW)
+    cfg = cfg_from_dict({"DATA_DIR": mini_cub, "MODEL": {"IMAGE_LOADER": "turbo"}})
+    with pytest.raises(ValueError, match="loader must be 'pil' or 'native'"):
         build_dataset(cfg, False, "train")
     monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "no_hub"))
     with pytest.raises(RuntimeError, match="tokenizer"):

@@ -23,6 +23,8 @@ gradient, whose sign is noise).
 """
 
 import os
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +34,7 @@ import torch
 import yaml
 
 from sba_gan_tpu.config import cfg_from_dict as jax_cfg_from_dict
+from sba_gan_tpu.models import inception as jax_inception
 from sba_gan_tpu.losses.damsm import sent_loss as jax_sent_loss
 from sba_gan_tpu.losses.damsm import words_loss as jax_words_loss
 from sba_gan_tpu.train.damsm import DAMSMTrainer as JaxTrainer
@@ -39,6 +42,7 @@ from sba_gan_tpu.train.damsm import build_damsm_models as jax_build
 from sba_gan_tpu_torch import pretrain
 from sba_gan_tpu_torch.config import cfg_from_dict
 from sba_gan_tpu_torch.data.pipeline import DataLoader, build_dataset
+from sba_gan_tpu_torch.parallel import dist
 from sba_gan_tpu_torch.train.damsm import (
     LOG_KEYS,
     DAMSMTrainer,
@@ -55,6 +59,17 @@ TINY = {"TREE": {"BRANCH_NUM": 1}, "TEXT": {"EMBEDDING_DIM": 32, "WORDS_NUM": T}
 GRAD = dict(rtol=1e-4, atol=1e-6)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs six
+    test processes on the CPU, and small ops slow down by an order of
+    magnitude when every process spins eight threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def make_batch():
     rng = np.random.default_rng(11)
     img = rng.uniform(-1, 1, (B, SIZE, SIZE, 3))
@@ -67,78 +82,124 @@ def make_batch():
     return img, captions, cap_lens, class_ids
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """The JAX trainer's state, its step, its gradients and eval logs, and
-    the dropout mask of that step, all as numpy."""
-    img, captions, cap_lens, class_ids = make_batch()
-    key = jax.random.PRNGKey(1)
-    with jax.enable_x64(True):
-        cfg = jax_cfg_from_dict({**TINY, "JAX": {"DTYPE": "float64"}})
-        models = jax_build(cfg, N_WORDS)
-        trainer = JaxTrainer(cfg, models, N_WORDS)
-        state = trainer.init_state(jax.random.PRNGKey(0))
-        args = (jnp.asarray(img), jnp.asarray(captions), jnp.asarray(cap_lens),
-                jnp.asarray(class_ids))
-        eval_logs = trainer.eval_step(state, *args)
-        new_state, logs = trainer.train_step(state, *args, key)
+def _jax_step(models, trainer, state, args, key, chunks=1):
+    """The JAX trainer's step from ``state`` as numpy, with the gradients of
+    the same losses (the image encoder over ``chunks`` sequential
+    sub-batches, its BatchNorm statistics threaded through them in order by
+    a scan, as the trainer's) and the dropout mask of that step."""
+    cfg = trainer.cfg
+    new_state, logs = trainer.train_step(state, *args, key)
+    rng = jax.random.fold_in(key, state.step)  # as the trainer draws it
+    _, inter = models.text_encoder.apply(
+        {"params": state.text_params}, args[1], args[2], train=True,
+        rngs={"dropout": rng}, capture_intermediates=True)
+    keep = np.asarray(inter["intermediates"]["Dropout_0"]["__call__"][0]) != 0
+    trunk = {k: v for k, v in state.image_params.items() if k == "backbone"}
+    heads = {k: v for k, v in state.image_params.items() if k != "backbone"}
 
-        rng = jax.random.fold_in(key, state.step)  # as the trainer draws it
-        _, inter = models.text_encoder.apply(
-            {"params": state.text_params}, args[1], args[2], train=True,
-            rngs={"dropout": rng}, capture_intermediates=True)
-        keep = np.asarray(inter["intermediates"]["Dropout_0"]["__call__"][0]) != 0
-        trunk = {k: v for k, v in state.image_params.items() if k == "backbone"}
-        heads = {k: v for k, v in state.image_params.items() if k != "backbone"}
-
-        def total(text_params, head_params):
+    def image_features(head_params):
+        variables = {"params": {**trunk, **head_params},
+                     "batch_stats": state.image_batch_stats}
+        if chunks == 1:
             (region, code), _ = models.image_encoder.apply(
-                {"params": {**trunk, **head_params},
-                 "batch_stats": state.image_batch_stats},
-                args[0], True, mutable=["batch_stats"])
-            words, sent = models.text_encoder.apply(
-                {"params": text_params}, args[1], args[2], train=True,
-                rngs={"dropout": rng})
-            labels = jnp.arange(B)
-            g = cfg.TRAIN.SMOOTH
-            w0, w1 = jax_words_loss(region, words, labels, args[2], args[3],
-                                    g.GAMMA1, g.GAMMA2, g.GAMMA3)
-            s0, s1 = jax_sent_loss(code, sent, labels, args[3], g.GAMMA3)
-            return w0 + w1 + s0 + s1
+                variables, args[0], True, mutable=["batch_stats"])
+            return region, code
 
-        text_grads, head_grads = jax.grad(total, argnums=(0, 1))(
-            state.text_params, heads)
-        out = jax.tree.map(np.asarray, dict(
-            state=dict(text=state.text_params, image=state.image_params,
-                       stats=state.image_batch_stats),
-            new=dict(text=new_state.text_params, image=new_state.image_params,
-                     stats=new_state.image_batch_stats),
-            logs=logs, eval_logs=eval_logs, text_grads=text_grads,
-            head_grads=head_grads))
+        def body(stats, part):
+            (region, code), mut = models.image_encoder.apply(
+                {**variables, "batch_stats": stats}, part, True, mutable=["batch_stats"])
+            return mut["batch_stats"], (region, code)
+
+        parts = args[0].reshape(chunks, B // chunks, *args[0].shape[1:])
+        _, (region, code) = jax.lax.scan(body, state.image_batch_stats, parts)
+        return region.reshape(B, *region.shape[2:]), code.reshape(B, -1)
+
+    def total(text_params, head_params):
+        region, code = image_features(head_params)
+        words, sent = models.text_encoder.apply(
+            {"params": text_params}, args[1], args[2], train=True,
+            rngs={"dropout": rng})
+        labels = jnp.arange(B)
+        g = cfg.TRAIN.SMOOTH
+        w0, w1 = jax_words_loss(region, words, labels, args[2], args[3],
+                                g.GAMMA1, g.GAMMA2, g.GAMMA3)
+        s0, s1 = jax_sent_loss(code, sent, labels, args[3], g.GAMMA3)
+        return w0 + w1 + s0 + s1
+
+    grad = jax.grad(total, argnums=(0, 1))
+    text_grads, head_grads = (grad if chunks == 1 else jax.jit(grad))(
+        state.text_params, heads)
+    out = jax.tree.map(np.asarray, dict(
+        state=dict(text=state.text_params, image=state.image_params,
+                   stats=state.image_batch_stats),
+        new=dict(text=new_state.text_params, image=new_state.image_params,
+                 stats=new_state.image_batch_stats),
+        logs=logs, text_grads=text_grads, head_grads=head_grads))
     out["keep"] = keep
     return out
 
 
 @pytest.fixture(scope="module")
-def port_run(jax_run):
-    """The port's trainer from the same weights, eval logs, then one step."""
-    img, captions, cap_lens, class_ids = make_batch()
-    cfg = cfg_from_dict(TINY)
+def jax_init():
+    """The JAX models, trainer and initial state (float64 compute)."""
+    with jax.enable_x64(True):
+        cfg = jax_cfg_from_dict({**TINY, "JAX": {"DTYPE": "float64"}})
+        models = jax_build(cfg, N_WORDS)
+        trainer = JaxTrainer(cfg, models, N_WORDS)
+        state = trainer.init_state(jax.random.PRNGKey(0))
+    return models, trainer, state
+
+
+def _jax_args():
+    return tuple(jnp.asarray(a) for a in make_batch())
+
+
+@pytest.fixture(scope="module")
+def jax_run(jax_init):
+    """The JAX trainer's state, its step, its gradients and eval logs, and
+    the dropout mask of that step, all as numpy."""
+    models, trainer, state = jax_init
+    with jax.enable_x64(True):
+        args = _jax_args()
+        eval_logs = trainer.eval_step(state, *args)
+        out = _jax_step(models, trainer, state, args, jax.random.PRNGKey(1))
+        out["eval_logs"] = jax.tree.map(np.asarray, eval_logs)
+    return out
+
+
+def _port_trainer(run, chunks=1):
+    """The port's trainer (float64) from the weights of a JAX run's state."""
+    cfg = cfg_from_dict({**TINY, "JAX": {"DAMSM_CHUNKS": chunks}})
     models = build_damsm_models(cfg, N_WORDS)
-    s = jax_run["state"]
+    s = run["state"]
     models.text_encoder.load_state_dict(W.rnn_encoder_state_dict(s["text"]))
     models.image_encoder.load_state_dict(W.cnn_encoder_state_dict(s["image"], s["stats"]))
     models.text_encoder.double()
     models.image_encoder.double()
-    trainer = DAMSMTrainer(cfg, models, device="cpu")
+    return DAMSMTrainer(cfg, models, device="cpu")
+
+
+def _port_batch():
+    img, captions, cap_lens, class_ids = make_batch()
+    return (torch.from_numpy(img), torch.from_numpy(captions).long(),
+            torch.from_numpy(cap_lens).long(), torch.from_numpy(class_ids).long())
+
+
+def _port_step(trainer, run):
+    """One step of the port's trainer with the JAX run's dropout mask, and
+    what it started from."""
     before = {k: v.clone() for k, v in trainer.image_encoder.state_dict().items()}
     text_before = [p.detach().clone() for p in trainer.text_params]
-    batch = (torch.from_numpy(img), torch.from_numpy(captions).long(),
-             torch.from_numpy(cap_lens).long(), torch.from_numpy(class_ids).long())
-    eval_logs = trainer.eval_step(*batch)
-    logs = trainer.train_step(*batch, keep_mask=torch.from_numpy(jax_run["keep"]))
-    return dict(trainer=trainer, logs=logs, eval_logs=eval_logs, before=before,
-                text_before=text_before)
+    logs = trainer.train_step(*_port_batch(), keep_mask=torch.from_numpy(run["keep"]))
+    return dict(trainer=trainer, logs=logs, before=before, text_before=text_before)
+
+
+@pytest.fixture(scope="module")
+def port_run(jax_run):
+    """The port's trainer from the same weights, eval logs, then one step."""
+    trainer = _port_trainer(jax_run)
+    eval_logs = trainer.eval_step(*_port_batch())
+    return dict(_port_step(trainer, jax_run), eval_logs=eval_logs)
 
 
 def _close_update(new, old, want_new, want_old, g_port, g_jax):
@@ -163,6 +224,10 @@ def test_logs_match(jax_run, port_run):
 
 
 def test_gradients_match(jax_run, port_run):
+    _check_gradients(jax_run, port_run)
+
+
+def _check_gradients(jax_run, port_run):
     tr = port_run["trainer"]
     # the text side is clipped to global norm 0.25 with optax's formula
     want = W.rnn_encoder_state_dict(_scale_tree(jax_run["text_grads"],
@@ -191,6 +256,10 @@ def _scale_tree(tree, scale):
 
 
 def test_running_stats_and_updated_params(jax_run, port_run):
+    _check_stats_and_params(jax_run, port_run)
+
+
+def _check_stats_and_params(jax_run, port_run):
     tr = port_run["trainer"]
     new, old = jax_run["new"], jax_run["state"]
     got = tr.image_encoder.state_dict()
@@ -257,22 +326,111 @@ def test_loss_dtype_sets_the_kernels_mm_dtype(loss_dtype):
     assert trainer.mm_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("chunks", [1, 2])
-def test_damsm_chunks_above_one_is_refused(chunks):
-    """``JAX.DAMSM_CHUNKS`` > 1 (the JAX trainer's sequential sub-batches of
-    the train-mode Inception, whose BatchNorm statistics differ from one
-    pass) is not ported: the trainer raises, naming ROADMAP.md; 1 trains as
-    before."""
-    cfg = cfg_from_dict({**TINY, "JAX": {"DAMSM_CHUNKS": chunks}})
-    if chunks > 1:
-        with pytest.raises(NotImplementedError, match="DAMSM_CHUNKS.*ROADMAP"):
-            DAMSMTrainer(cfg, build_damsm_models(cfg, N_WORDS), device="cpu")
-        return
+def _avg_pool_f64(x):
+    """JAX's ``avg_pool_3x3_s1_pad1`` (torch's 3 x 3 average, stride 1,
+    padding 1, divisor 9) without its round trip through float32."""
+    s = jax.lax.reduce_window(x, 0.0, jax.lax.add, (1, 3, 3, 1), (1, 1, 1, 1),
+                              ((0, 0), (1, 1), (1, 1), (0, 0)))
+    return s / 9.0
+
+
+CHUNKS = (2, 4)
+
+
+@pytest.fixture(scope="module")
+def chunked_jax_runs(jax_init):
+    """For each ``JAX.DAMSM_CHUNKS`` c of CHUNKS, the JAX trainer's step (its
+    scan over c sequential sub-batches of the Inception) from ``jax_init``'s
+    state, the two compiled in threads.  The scan carries the running
+    statistics in the dtype they come out in, so the initial ones go in as
+    float64 (exactly).
+
+    JAX's average pool rounds through float32 even under x64; with 4 or 2
+    rows a sub-batch, Mixed_7's batch statistics (1 x 1 maps) amplify that
+    rounding to ~1e-4 in the sentence losses (read at c 4: 1.25e-4
+    relative; tests/test_torch_inception.py), so here the JAX modules trace
+    the same pool in float64, and the step is held at the one-pass
+    tolerances."""
+    models, _, state = jax_init
+
+    def run(chunks):
+        with jax.enable_x64(True):
+            cfg = jax_cfg_from_dict({**TINY, "JAX": {"DTYPE": "float64",
+                                                     "DAMSM_CHUNKS": chunks}})
+            trainer = JaxTrainer(cfg, models, N_WORDS)
+            start = state.replace(image_batch_stats=jax.tree.map(
+                lambda x: x.astype(jnp.float64), state.image_batch_stats))
+            return _jax_step(models, trainer, start, _jax_args(), jax.random.PRNGKey(1),
+                             chunks)
+
+    with mock.patch.object(jax_inception, "avg_pool_3x3_s1_pad1", _avg_pool_f64), \
+            ThreadPoolExecutor(len(CHUNKS)) as pool:
+        return dict(zip(CHUNKS, pool.map(run, CHUNKS)))
+
+
+@pytest.fixture(scope="module", params=CHUNKS)
+def chunked_runs(request, chunked_jax_runs):
+    """c, the JAX run of c and the port's step with c sub-batches from the
+    same weights, batch and dropout mask."""
+    chunks = request.param
+    run = chunked_jax_runs[chunks]
+    return chunks, run, _port_step(_port_trainer(run, chunks), run)
+
+
+def test_chunked_step_matches_jax(chunked_runs, jax_run):
+    """Sequential sub-batches of the train-mode Inception against the JAX
+    trainer's: logs, gradients, running statistics and updated parameters
+    at the tolerances of the one-pass step; the eval step stays one pass."""
+    chunks, run, port = chunked_runs
+    for key in LOG_KEYS:
+        np.testing.assert_allclose(float(port["logs"][key]), float(run["logs"][key]),
+                                   rtol=2e-5, err_msg=key)
+    _check_gradients(run, port)
+    _check_stats_and_params(run, port)
+    fresh = _port_trainer(jax_run, chunks)
+    eval_logs = fresh.eval_step(*_port_batch())
+    for key in LOG_KEYS:
+        np.testing.assert_allclose(float(eval_logs[key]), float(jax_run["eval_logs"][key]),
+                                   rtol=2e-5, err_msg=f"eval {key}")
+
+
+def test_chunks_change_the_step(chunked_runs, jax_run, port_run):
+    """Per-sub-batch statistics are other values: the losses, the gradients
+    and the running statistics differ from the one-pass step's, in JAX and
+    in the port alike."""
+    _, run, port = chunked_runs
+    for got, want in ((port["logs"], port_run["logs"]), (run["logs"], jax_run["logs"])):
+        assert abs(float(got["total"]) - float(want["total"])) > 1e-4 * abs(float(want["total"]))
+    code_g = port["trainer"].image_encoder.emb_cnn_code.weight.grad
+    assert not torch.allclose(code_g, port_run["trainer"].image_encoder.emb_cnn_code.weight.grad,
+                              rtol=1e-3, atol=0)
+    stats = port["trainer"].image_encoder.state_dict()
+    one_pass = port_run["trainer"].image_encoder.state_dict()
+    key = "Conv2d_1a_3x3.bn.running_mean"
+    assert not torch.allclose(stats[key], one_pass[key], rtol=1e-3, atol=0)
+
+
+def test_chunks_must_divide_the_batch():
+    cfg = cfg_from_dict({**TINY, "JAX": {"DAMSM_CHUNKS": 3}})
     trainer = DAMSMTrainer(cfg, build_damsm_models(cfg, N_WORDS, seed=0), device="cpu")
-    img, captions, cap_lens, class_ids = (torch.from_numpy(a) for a in make_batch())
-    logs = trainer.train_step(img.float(), captions.long(), cap_lens.long(), class_ids.long())
-    assert sorted(logs) == sorted(LOG_KEYS) and all(np.isfinite(float(v))
-                                                    for v in logs.values())
+    img, captions, cap_lens, class_ids = _port_batch()
+    with pytest.raises(ValueError, match="DAMSM_CHUNKS=3 does not divide the batch 8"):
+        trainer.train_step(img.float(), captions, cap_lens, class_ids)
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_chunks_across_ranks(monkeypatch, chunks):
+    """Across ranks the sub-batches (blocks of the global batch) do not line
+    up with the ranks' rows: chunks above 1 raise, naming ROADMAP.md; 1
+    builds."""
+    monkeypatch.setattr(dist, "world_size", lambda: 2)
+    cfg = cfg_from_dict({**TINY, "JAX": {"DAMSM_CHUNKS": chunks}})
+    models = build_damsm_models(cfg, N_WORDS)
+    if chunks > 1:
+        with pytest.raises(NotImplementedError, match="DAMSM_CHUNKS=2 across 2 ranks.*ROADMAP"):
+            DAMSMTrainer(cfg, models, device="cpu")
+    else:
+        assert DAMSMTrainer(cfg, models, device="cpu").chunks == 1
 
 
 def test_checkpointer_round_trip(tmp_path):

@@ -38,11 +38,19 @@ def test_synthetic_set_and_loader_match_jax():
 
 
 def test_only_the_synthetic_set_is_ported(tmp_path, monkeypatch):
-    """Of the real-data readers, the native JPEG loader is not ported and
-    raises before reading anything, and the BERT vocabulary raises without
-    its cached files (the CUB reader itself: tests/test_torch_cub_data.py;
-    the BERT vocabulary: tests/test_torch_bert_vocab.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Of the real-data readers, the native JPEG loader raises before reading
+    anything where its library cannot be built (here: a library that does
+    not exist in its link line), with no fallback to PIL, and the BERT
+    vocabulary raises without its cached files (the CUB reader itself:
+    tests/test_torch_cub_data.py; the native loader:
+    tests/test_torch_native_loader.py; the BERT vocabulary:
+    tests/test_torch_bert_vocab.py)."""
+    from sba_gan_tpu_torch.data import native_loader
+
+    monkeypatch.setattr(native_loader, "_lib", None)
+    monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(native_loader, "LIBS", ("-lsba_no_such_library",))
+    with pytest.raises(RuntimeError, match="native image loader"):
         build_dataset(cfg_from_dict({**TINY, "MODEL": {"IMAGE_LOADER": "native"}}),
                       False, "train")
     monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "no_hub"))

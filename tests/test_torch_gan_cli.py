@@ -107,12 +107,12 @@ def test_restored_trainer_renders_ema_sample_and_attention(cli_run):
 
 def test_not_ported_modes_raise(tmp_path):
     """What the CLI still refuses, naming ROADMAP.md: the tensor-parallel
-    model axis (``JAX.MESH_MODEL`` 2), the native JPEG loader and a
-    reference BERT text encoder as ``TRAIN.NET_E``."""
+    model axis (``JAX.MESH_MODEL`` 2) and a reference BERT text encoder as
+    ``TRAIN.NET_E`` (the native JPEG loader is ported:
+    tests/test_torch_native_loader.py)."""
     ref = tmp_path / "text_encoder120.pth"
     torch.save({"bert.embeddings.word_embeddings.weight": torch.zeros(3, 2)}, ref)
-    for key, value in (("JAX", {"MESH_MODEL": 2}), ("MODEL", {"IMAGE_LOADER": "native"}),
-                       ("TRAIN", {"NET_E": str(ref)})):
+    for key, value in (("JAX", {"MESH_MODEL": 2}), ("TRAIN", {"NET_E": str(ref)})):
         cfg = {**GAN_TINY, "DATA_DIR": str(tmp_path),
                key: {**GAN_TINY.get(key, {}), **value}}
         yml = tmp_path / "refused.yml"

@@ -32,10 +32,15 @@ and the same captions (lengths 6, 4, 3, 1 of 6).
   Mixed_7 and head gradients (JAX's from Adam's first moment, 2 mu) rtol
   1e-4, atol 1e-5 of the group's largest entry; parameters after Adam as
   tests/test_torch_damsm_pretrain.py holds them; running statistics atol
-  2e-5;
+  2e-5; the same step with ``JAX.DAMSM_CHUNKS`` 2 against JAX's scan over
+  sub-batches, where Mixed_7's gradients flow through each sub-batch's own
+  statistics, at the same tolerances;
 * the port's BERT gradients are finite with padded captions, and the
   words' gradient exactly 0 at padding.
 """
+
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +52,7 @@ from flax import linen as fnn
 from _torch_parity import cnn_encoder_key, flax_tree_from_port, import_transformers
 from sba_gan_tpu.config import cfg_from_dict as jax_cfg_from_dict
 from sba_gan_tpu.losses.damsm import words_loss as jax_words_loss
+from sba_gan_tpu.models import inception as jax_inception
 from sba_gan_tpu.models.text_bert import BertEncoder as JaxBertEncoder
 from sba_gan_tpu.models.text_bert import bert_trainable_mask as jax_trainable_mask
 from sba_gan_tpu.models.text_bert import port_bert
@@ -280,49 +286,100 @@ def _adam_mu(opt_state):
     return mu
 
 
-@pytest.fixture(scope="module")
-def pretrain_case():
-    """One BERT DAMSM train step of JAX and of the port (float64) from the
-    port's random weights: logs, gradients after the clip (JAX's 2 mu), the
-    parameters before and after, the running statistics."""
-    img, captions, cap_lens, class_ids = _pretrain_batch()
+def _pretrain_models():
     with pytest.MonkeyPatch.context() as mp:  # both packages build bert-base
         mp.setattr(tb, "BERT_BASE", TINY)
-        models = build_damsm_models(cfg_from_dict(PRETRAIN), N_WORDS, seed=0)
+        return build_damsm_models(cfg_from_dict(PRETRAIN), N_WORDS, seed=0)
+
+
+def _avg_pool_f64(x):
+    """JAX's ``avg_pool_3x3_s1_pad1`` (torch's 3 x 3 average, stride 1,
+    padding 1, divisor 9) without its round trip through float32."""
+    s = jax.lax.reduce_window(x, 0.0, jax.lax.add, (1, 3, 3, 1), (1, 1, 1, 1),
+                              ((0, 0), (1, 1), (1, 1), (0, 0)))
+    return s / 9.0
+
+
+def _jax_pretrain_lowered(models, chunks):
+    """JAX's BERT DAMSM train step (float64) with ``JAX.DAMSM_CHUNKS``
+    ``chunks``, lowered on the port's weights and the batch: (lowered,
+    args).  The chunked scan carries the running statistics in the dtype
+    they come out in, so they go in as float64 (exactly)."""
     text_sd, image_sd = models.text_encoder.state_dict(), models.image_encoder.state_dict()
     with jax.enable_x64(True):
-        jcfg = jax_cfg_from_dict({**PRETRAIN, "JAX": JAX_INTERPRET})
+        jcfg = jax_cfg_from_dict({**PRETRAIN, "JAX": {**JAX_INTERPRET,
+                                                      "DAMSM_CHUNKS": chunks}})
         jmodels = jax_build_damsm(jcfg, N_WORDS)._replace(
             text_encoder=JaxBertEncoder(nef=32, bert_cfg=TINY, dtype=jnp.float64))
         trainer = JaxDAMSMTrainer(jcfg, jmodels, N_WORDS)
         abstract = jax.eval_shape(trainer.init_state, jax.random.PRNGKey(0))
+        stats = flax_tree_from_port(abstract.image_batch_stats, image_sd, cnn_encoder_key)
+        if chunks > 1:
+            stats = jax.tree.map(lambda x: x.astype(jnp.float64), stats)
         state = trainer.reset_optimizer(abstract.replace(
             step=jnp.zeros((), jnp.int32),
             text_params=flax_tree_from_port(abstract.text_params, text_sd,
                                             W.bert_encoder_key),
             image_params=flax_tree_from_port(abstract.image_params, image_sd,
                                              cnn_encoder_key),
-            image_batch_stats=flax_tree_from_port(abstract.image_batch_stats, image_sd,
-                                                  cnn_encoder_key)), 0)
-        args = tuple(jnp.asarray(a) for a in (img, captions, cap_lens, class_ids))
-        new, logs = trainer.train_step(state, *args, jax.random.PRNGKey(1))
+            image_batch_stats=stats), 0)
+        args = (state,) + tuple(jnp.asarray(a) for a in _pretrain_batch()) + (
+            jax.random.PRNGKey(1),)
+        return trainer.train_step.lower(*args), args
+
+
+def _want(step, args):
+    """The compiled JAX step's logs, gradients after the clip (2 mu), new
+    parameters and running statistics, in the port's names."""
+    with jax.enable_x64(True):
+        new, logs = step(*args)
         new = jax.tree.map(np.asarray, new)
     text_mu, image_mu = (_adam_mu(s) for s in new.opt_state)
-    want = {"logs": {k: float(v) for k, v in logs.items()},
+    return {"logs": {k: float(v) for k, v in logs.items()},
             "text_grads": {k: 2 * v.double().numpy() for k, v in
                            W.bert_encoder_state_dict(text_mu).items()},
             "image_grads": {k: 2 * v.double().numpy() for k, v in
                             W.cnn_encoder_state_dict(image_mu, {}).items()},
             "text": W.bert_encoder_state_dict(new.text_params),
             "image": W.cnn_encoder_state_dict(new.image_params, new.image_batch_stats)}
+
+
+def _port_pretrain(models, chunks):
+    """The port's step (float64) from ``models``: (trainer, logs, before)."""
+    img, captions, cap_lens, class_ids = _pretrain_batch()
     models.text_encoder.double()
     models.image_encoder.double()
-    tr = DAMSMTrainer(cfg_from_dict(PRETRAIN), models, device="cpu")
+    tr = DAMSMTrainer(cfg_from_dict({**PRETRAIN, "JAX": {"DAMSM_CHUNKS": chunks}}), models,
+                      device="cpu")
     before = {"text": {k: v.clone() for k, v in tr.text_encoder.state_dict().items()},
               "image": {k: v.clone() for k, v in tr.image_encoder.state_dict().items()}}
     logs = tr.train_step(torch.from_numpy(img), torch.from_numpy(captions).long(),
                          torch.from_numpy(cap_lens).long(), torch.from_numpy(class_ids).long())
-    return want, tr, {k: float(v) for k, v in logs.items()}, before
+    return tr, {k: float(v) for k, v in logs.items()}, before
+
+
+@pytest.fixture(scope="module")
+def pretrain_cases():
+    """For ``JAX.DAMSM_CHUNKS`` 1 and 2, one BERT DAMSM train step of JAX
+    and of the port (float64) from the port's random weights: (JAX's
+    readings, trainer, logs, the state before).  The two JAX steps compile
+    in threads.  The chunked one traces JAX's average pool in float64
+    (``_avg_pool_f64``): its float32 round trip, amplified by 4-row batch
+    statistics, would be held instead of the step (as in
+    tests/test_torch_damsm_pretrain.py's chunked cases)."""
+    models = {c: _pretrain_models() for c in (1, 2)}
+    with mock.patch.object(jax_inception, "avg_pool_3x3_s1_pad1", _avg_pool_f64):
+        lowered = {2: _jax_pretrain_lowered(models[2], 2)}
+    lowered[1] = _jax_pretrain_lowered(models[1], 1)
+    with ThreadPoolExecutor(2) as pool:
+        steps = dict(zip(lowered, pool.map(lambda c: lowered[c][0].compile(), lowered)))
+    return {c: (_want(steps[c], lowered[c][1]), *_port_pretrain(models[c], c))
+            for c in (1, 2)}
+
+
+@pytest.fixture(scope="module")
+def pretrain_case(pretrain_cases):
+    return pretrain_cases[1]
 
 
 def _hold_group(params, want_grads, want_new, before):
@@ -348,7 +405,23 @@ def _hold_group(params, want_grads, want_new, before):
 
 def test_pretrain_step_matches_jax(pretrain_case):
     """Both sides start from the port's weights (``before``)."""
-    want, tr, logs, before = pretrain_case
+    _hold_pretrain_step(*pretrain_case)
+
+
+def test_chunked_pretrain_step_matches_jax(pretrain_cases):
+    """``JAX.DAMSM_CHUNKS`` 2: Mixed_7a/b/c train, so their gradients flow
+    through each sub-batch's own BatchNorm statistics; held to JAX's scan
+    at the one-pass tolerances, and different from the one-pass step's."""
+    _hold_pretrain_step(*pretrain_cases[2])
+    (one, tr1, _, _), (two, tr2, _, _) = pretrain_cases[1], pretrain_cases[2]
+    assert abs(two["logs"]["total"] - one["logs"]["total"]) > 1e-4 * abs(one["logs"]["total"])
+    for name in ("Mixed_7b.branch1x1.conv.weight", "Mixed_7c.branch_pool.conv.weight"):
+        g1 = dict(tr1.image_encoder.named_parameters())[name].grad
+        g2 = dict(tr2.image_encoder.named_parameters())[name].grad
+        assert not torch.allclose(g1, g2, rtol=1e-3, atol=0), name
+
+
+def _hold_pretrain_step(want, tr, logs, before):
     assert sorted(logs) == sorted(want["logs"]) == sorted(LOG_KEYS)
     for k, v in want["logs"].items():
         np.testing.assert_allclose(logs[k], v, rtol=2e-5, err_msg=k)
