@@ -56,8 +56,9 @@ and nothing of JAX.  Phases, each printing one line or more:
    twice, K1 and K2 once, K3 never (K1 and K2 once in the DAMSM terms
    alone);
 10. GAN bench: ``python -m sba_gan_tpu_torch.bench`` in this process, at
-   batch 128 (or the largest that fits, stated), its JSON line printed on
-   its own line; it must run at the precision step 9 checked;
+   batch 128 (or the largest that fits, stated), a window of 10 steps and
+   one traced (``SHORT_BENCH``), its JSON line printed on its own line; it
+   must run at the precision step 9 checked;
 11. GAN CLI: ``main.main`` trains one epoch of synthetic data at batch 32
    with the encoders of the pretrain CLI's checkpoint (``TRAIN.NET_E``),
    saves the full GAN state, and a second call resumes for another epoch
@@ -156,21 +157,43 @@ and nothing of JAX.  Phases, each printing one line or more:
    native`` on the CUB tree: where g++ or libjpeg is missing, the build's
    error line and the reader raising without a PIL read; where it builds,
    items against PIL's and 0 against 4 threads, items/s;
-21. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
+21. AttnGAN2 on COCO at its published widths (``configs/coco_attn2.yml``:
+   GF_DIM 48, DF_DIM 96, R_NUM 3, WORDS_NUM 12, lambda 50; ``eval_coco.yml``,
+   WORDS_NUM 20, batch 100; ``DAMSM/coco.yml``, WORDS_NUM 15, batch 48; the
+   COCO vocabulary of 27,297 words), after the DCGAN phases; their CPU
+   references start in the thread beside the DCGAN and COCO CLI phases:
+   ``coco_tree``, a COCO-layout tree (flat ``images/`` of 640 x 480 JPEGs,
+   no boxes, 5 captions an image, 100 test and 96 train items); ``coco_cli``,
+   ``pretrain.main`` with DAMSM/coco on it (``coco_pretrain_cli``: two steps,
+   two evaluation batches), ``main.main`` with coco_attn2 and that
+   checkpoint as TRAIN.NET_E (``coco_gan_cli``: an epoch of 6 steps of 14,
+   save, resume), its EMA G as a reference-layout ``netG.pth`` and
+   ``main.main`` with eval_coco and ``B_VALIDATION`` (``coco_sampling``: 100
+   PNGs in one batch, K4 twice, the first 4 images card against CPU within
+   SLICE_ATOL); ``pretrain_step_coco``, step 7 at DAMSM/coco's batch 48 and
+   T 15 (PRETRAIN_TOL; K1, K2, K3 once each); ``gan_step_coco``, step 9
+   with coco_attn2 at batch 8 and WORDS_NUM 12 (the gan_step bounds); K4's
+   generic-D instance at D 48 in kernel rows (B 14, QL 64^2 and 128^2, T
+   12, float32 and bfloat16; B 100 QL 64^2 T 20; B 1 QL 128^2 T 20) and
+   K1-K3 at B 48 T 15; ``gan_bench_coco``, ``bench.measure`` with the
+   coco_attn2 keys at batch 14 and 128 (or the largest that fits) in
+   float32 and bfloat16, beside step 10's bird_style lines;
+22. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
    K4's also in the evaluation phases, each kernel's on the BERT paths
    under ``bert_paths``, on the data-parallel paths under ``dist_paths``,
-   on the GAN.B_DCGAN paths under ``dcgan_paths``, and K1-K3's on the
-   chunked pretraining and profiling paths under ``chunks_paths``), then
+   on the GAN.B_DCGAN paths under ``dcgan_paths``, K1-K3's on the
+   chunked pretraining and profiling paths under ``chunks_paths``, and each
+   kernel's on the COCO paths under ``coco_paths`` with its COCO rows), then
    the device JSON line last.
 
 The phases run in the order of ``main``, which differs from the numbers
 above: one thread computes the CPU's reference runs of the GAN steps (step
 9, the BERT steps of 17, the accumulation window of 18, the DCGAN step of
-19) beside phases whose host time is no metric (the pretraining phases,
-the CLIs, the ranks); each line carries ``at_s``, its seconds since the
-start.  The bench lines beside the gan_bench phases' (``gan_bench_bert``,
-``gan_bench_dist``, ``gan_bench_dcgan``) time a window of 10 steps and
-trace one (``SHORT_BENCH``).
+19, the COCO steps of 21) beside phases whose host time is no metric (the
+pretraining phases, the CLIs, the ranks); each line carries ``at_s``, its
+seconds since the start.  Every bench line times a window of 10 steps and
+traces one (``SHORT_BENCH``); the bench lines after step 10 run on copies
+of one seeded draw of weights per architecture (``seeded_models``).
 
 Under ``JAX.DTYPE`` and ``LOSS_DTYPE`` bfloat16 (the JAX package's
 accelerator setting), beside the float32 phases: each kernel's bfloat16
@@ -199,10 +222,12 @@ import gc
 import io
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -495,44 +520,63 @@ def _rel_err(got, want) -> float:
     return (got.cpu() - want.cpu()).abs().max().item() / (scale or 1.0)
 
 
-def pretrain_step_runs(cfg, batch_size, chunks=1):
-    """One full-width DAMSM train step of ``cfg`` (``JAX.DAMSM_CHUNKS``
-    ``chunks``) on the card and on the CPU from the same weights, batch and
-    dropout mask, TF32 off: logs, gradients, running statistics, seconds
-    and the card's launches (counts set to 0 just before its step)."""
+def pretrain_step_inputs(cfg, batch_size, chunks=1, n_words=N_WORDS):
+    """A full-width DAMSM train step's config (``JAX.DAMSM_CHUNKS``
+    ``chunks``), random models from SEED over a vocabulary of ``n_words``,
+    one synthetic batch and its dropout mask, all on the CPU."""
     from sba_gan_tpu_torch.data.pipeline import collate
     from sba_gan_tpu_torch.data.cub import SyntheticDataset
-    from sba_gan_tpu_torch.train.damsm import DAMSMTrainer, build_damsm_models
+    from sba_gan_tpu_torch.train.damsm import build_damsm_models
 
     cfg = copy.deepcopy(cfg)
     cfg.TRAIN.BATCH_SIZE = batch_size
     cfg.JAX.DAMSM_CHUNKS = chunks
-    models = build_damsm_models(cfg, N_WORDS, seed=SEED)
+    models = build_damsm_models(cfg, n_words, seed=SEED)
     ds = SyntheticDataset(num_examples=batch_size, base_size=cfg.TREE.BASE_SIZE,
                           branch_num=cfg.TREE.BRANCH_NUM, words_num=cfg.TEXT.WORDS_NUM,
-                          n_words=N_WORDS, seed=SEED)
+                          n_words=n_words, seed=SEED)
     batch = collate([ds[i] for i in range(batch_size)])
     keep = models.text_encoder.dropout_mask(batch.captions,
                                             torch.Generator().manual_seed(SEED + 2))
+    return cfg, models, batch, keep
+
+
+def pretrain_step_run(inputs, device, count=True):
+    """One step of :func:`pretrain_step_inputs` on ``device`` from a copy of
+    its models (TF32 as the caller set it): logs, gradients, running
+    statistics, seconds and the launches (counts set to 0 just before; None
+    without ``count``, for a CPU run beside phases that count)."""
+    from sba_gan_tpu_torch.train.damsm import DAMSMTrainer
+
+    cfg, models, batch, keep = inputs
     wrappers = _kernel_wrappers()
-    runs = {}
+    trainer = DAMSMTrainer(cfg, copy.deepcopy(models), device=device)
+    if count:
+        reset_launches(wrappers)
+    t0 = time.perf_counter()
+    logs = trainer.train_step(
+        batch.imgs[-1].to(device), batch.captions.to(device), batch.cap_lens,
+        batch.class_ids.to(device), keep_mask=keep.to(device))
+    logs = {k: float(v) for k, v in logs.items()}
+    seconds = time.perf_counter() - t0
+    grads = {f"text.{n}": p.grad for n, p in trainer.text_encoder.named_parameters()}
+    grads.update({f"image.{n}": p.grad for n, p in
+                  trainer.image_encoder.named_parameters() if p.grad is not None})
+    stats = {n: b for n, b in trainer.image_encoder.state_dict().items()
+             if n.endswith(("running_mean", "running_var"))}
+    return dict(logs=logs, grads=grads, stats=stats, seconds=seconds,
+                launches=read_launches(wrappers) if count else None)
+
+
+def pretrain_step_runs(cfg, batch_size, chunks=1, inputs=None, cpu=None):
+    """One full-width DAMSM train step of ``cfg`` (``JAX.DAMSM_CHUNKS``
+    ``chunks``; or of ``inputs``) on the card and on the CPU (``cpu``: its
+    run, made already) from the same weights, batch and dropout mask, TF32
+    off (:func:`pretrain_step_run`)."""
+    inputs = inputs or pretrain_step_inputs(cfg, batch_size, chunks)
     with tf32(cudnn=False, matmul=False):
-        for device in ("cuda", "cpu"):
-            trainer = DAMSMTrainer(cfg, copy.deepcopy(models), device=device)
-            reset_launches(wrappers)
-            t0 = time.perf_counter()
-            logs = trainer.train_step(
-                batch.imgs[-1].to(device), batch.captions.to(device), batch.cap_lens,
-                batch.class_ids.to(device), keep_mask=keep.to(device))
-            logs = {k: float(v) for k, v in logs.items()}
-            seconds = time.perf_counter() - t0
-            grads = {f"text.{n}": p.grad for n, p in trainer.text_encoder.named_parameters()}
-            grads.update({f"image.{n}": p.grad for n, p in
-                          trainer.image_encoder.named_parameters() if p.grad is not None})
-            stats = {n: b for n, b in trainer.image_encoder.state_dict().items()
-                     if n.endswith(("running_mean", "running_var"))}
-            runs[device] = dict(logs=logs, grads=grads, stats=stats, seconds=seconds,
-                                launches=read_launches(wrappers))
+        runs = {"cuda": pretrain_step_run(inputs, "cuda")}
+        runs["cpu"] = cpu or pretrain_step_run(inputs, "cpu")
     return runs
 
 
@@ -549,27 +593,33 @@ def pretrain_step_readings(runs):
     }
 
 
-def phase_pretrain_step(cfg, batch_size):
+def phase_pretrain_step(cfg, batch_size, phase="pretrain_step", inputs=None, cpu=None):
     """One full-width DAMSM train step on the card against the same step on
-    the CPU: same weights, batch and dropout mask, TF32 off."""
-    runs = pretrain_step_runs(cfg, batch_size)
+    the CPU (``cpu``: its run of ``inputs``, made already): same weights,
+    batch and dropout mask, TF32 off; K1, K2 and K3 once each on the
+    card."""
+    runs = pretrain_step_runs(cfg, batch_size, inputs=inputs, cpu=cpu)
     gpu, cpu = runs["cuda"], runs["cpu"]
     errs = pretrain_step_readings(runs)
     worst_grad = max(errs["grads"].values())
-    say("pretrain_step", batch=batch_size, logs_cuda=gpu["logs"], logs_cpu=cpu["logs"],
+    say(phase, batch=batch_size, words_num=cfg.TEXT.WORDS_NUM, logs_cuda=gpu["logs"],
+        logs_cpu=cpu["logs"],
         rel_err_logs=errs["logs"], rel_err_grads_max=worst_grad,
         rel_err_grads={n: e for n, e in errs["grads"].items() if "emb_" in n or
                        n.startswith("text.")},
         rel_err_running_stats=errs["stats"], tol=PRETRAIN_TOL,
         grads_compared=sorted(gpu["grads"]), step_s_cuda=gpu["seconds"],
-        step_s_cpu=cpu["seconds"])
+        step_s_cpu=cpu["seconds"], launches=gpu["launches"], cpu_launches=cpu["launches"])
+    if gpu["launches"] != PRETRAIN_STEP_LAUNCHES or any((cpu["launches"] or {}).values()):
+        raise AssertionError(f"{phase}: launches {gpu['launches']} (want "
+                             f"{PRETRAIN_STEP_LAUNCHES}), on the CPU {cpu['launches']}")
     image_grads = sorted(n for n in gpu["grads"] if n.startswith("image."))
     if image_grads != ["image.emb_cnn_code.bias", "image.emb_cnn_code.weight",
                        "image.emb_features.weight"]:
         raise AssertionError(f"unexpected trainable image parameters: {image_grads}")
     if not (errs["logs"] <= PRETRAIN_TOL["logs"] and worst_grad <= PRETRAIN_TOL["grads"]
             and errs["stats"] <= PRETRAIN_TOL["stats"]):
-        raise AssertionError(f"pretrain step: card and CPU disagree beyond {PRETRAIN_TOL}")
+        raise AssertionError(f"{phase}: card and CPU disagree beyond {PRETRAIN_TOL}")
     return runs
 
 
@@ -684,12 +734,13 @@ def phase_pretrain_chunks_memory(cfg, steps=3):
     return {k: v["launches_per_step"] for k, v in lines.items()}
 
 
-def phase_pretrain_cli(cfg_path, out):
-    """``pretrain.main`` on the card: one epoch of synthetic data at full
-    width, evaluation, a checkpoint under ``out``; the counts of K1-K4 set to
-    0 just before (K4 runs on no pretrain path).  Then the checkpoint is
-    restored into a trainer on the card, as a resume does, and the CLI's
-    attention dump runs on one batch."""
+def phase_pretrain_cli(cfg_path, out, data_dir=None, name="pretrain_cli"):
+    """``pretrain.main`` on the card: one epoch of synthetic data (or of the
+    tree ``data_dir``) at full width, evaluation, a checkpoint under
+    ``out``; the counts of K1-K4 set to 0 just before (K4 runs on no
+    pretrain path).  Then the checkpoint is restored into a trainer on the
+    card, as a resume does, and the CLI's attention dump runs on one
+    batch."""
     from sba_gan_tpu_torch import pretrain
     from sba_gan_tpu_torch.config import cfg_from_file
     from sba_gan_tpu_torch.data.pipeline import build_dataset
@@ -700,7 +751,8 @@ def phase_pretrain_cli(cfg_path, out):
 
     wrappers = _kernel_wrappers()
     reset_launches(wrappers)
-    summary = pretrain.main(["--cfg", cfg_path, "--synthetic", "--max_epoch", "1",
+    data = ["--data_dir", data_dir] if data_dir else ["--synthetic"]
+    summary = pretrain.main(["--cfg", cfg_path, *data, "--max_epoch", "1",
                              "--output_dir", out])
     launches = read_launches(wrappers)
     epoch = summary["epochs"][0]
@@ -708,7 +760,8 @@ def phase_pretrain_cli(cfg_path, out):
 
     cfg = cfg_from_file(cfg_path)
     cfg.JAX.SEED = 100  # the CLI's --manualSeed default
-    train_ds = build_dataset(cfg, True, "train")  # the synthetic vocabulary: 300
+    cfg.DATA_DIR = data_dir or cfg.DATA_DIR
+    train_ds = build_dataset(cfg, not data_dir, "train")  # synthetic: 300 words
     resumed = DAMSMTrainer(cfg, build_damsm_models(cfg, train_ds.n_words),
                            device="cuda")
     resumed.load_state_dict(saved)
@@ -719,7 +772,7 @@ def phase_pretrain_cli(cfg_path, out):
     images = sorted(os.listdir(os.path.join(out, "Image")))
     start = build_damsm_models(cfg, train_ds.n_words, seed=cfg.JAX.SEED)
     steps = len(epoch["logs"])
-    evals = min(50, len(build_dataset(cfg, True, "test")) // cfg.TRAIN.BATCH_SIZE)
+    evals = min(50, len(build_dataset(cfg, not data_dir, "test")) // cfg.TRAIN.BATCH_SIZE)
     image_start = start.image_encoder.state_dict()
     image_end = saved["image_encoder"]
     trains = image_trainable_mask(start.image_encoder, cfg.MODEL.TEXT_ENCODER == "bert")
@@ -735,7 +788,7 @@ def phase_pretrain_cli(cfg_path, out):
     later = epoch["step_ms"][1:]
     same = all(torch.equal(v.cpu(), saved["image_encoder"][n])
                for n, v in resumed.image_encoder.state_dict().items())
-    say("pretrain_cli", text_encoder=cfg.MODEL.TEXT_ENCODER, steps=steps,
+    say(name, text_encoder=cfg.MODEL.TEXT_ENCODER, steps=steps,
         eval_batches=evals, launches=launches,
         logs_first=epoch["logs"][0], logs_last=epoch["logs"][-1], val_loss=epoch["val"],
         step_ms=epoch["step_ms"], step_ms_median_after_first=statistics.median(later),
@@ -944,25 +997,51 @@ def read_launches(wrappers, bf16: bool = False) -> dict:
     return {k: fn.bf16_launches if bf16 else fn.launches for k, fn in wrappers.items()}
 
 
-def gan_step_inputs(seed=SEED, batch_size=8, cfg_path=None):
-    """bird_style (or the preset ``cfg_path``) at WORDS_NUM 18: the config,
+_SEEDED = {}  # (seed, the networks' names and shapes) -> their seeded state dicts
+_SEEDED_LOCK = threading.Lock()  # the main thread and the CPU pool's thread share it
+
+
+def seeded_models(cfg, n_words=N_WORDS, seed=SEED):
+    """``train.gan.build_models(cfg, n_words, seed)``, its weights drawn once
+    per architecture and seed in this process and copied after (the
+    orthogonal draws of full-width Ds take seconds on the host each time)."""
+    from sba_gan_tpu_torch.train.gan import build_models, init_models
+
+    models = build_models(cfg, n_words)
+    nets = (models.text_encoder, models.image_encoder, models.generator,
+            *models.discriminators)
+    key = (seed, tuple((n, tuple(v.shape)) for m in nets for n, v in m.state_dict().items()))
+    with _SEEDED_LOCK:
+        cached = _SEEDED.get(key)
+    if cached is None:
+        init_models(models, seed)
+        with _SEEDED_LOCK:
+            _SEEDED.setdefault(key, [copy.deepcopy(m.state_dict()) for m in nets])
+        return models
+    for m, sd in zip(nets, cached):
+        m.load_state_dict(sd)
+    return models
+
+
+def gan_step_inputs(seed=SEED, batch_size=8, cfg_path=None, words_num=18, n_words=N_WORDS):
+    """bird_style (or the preset ``cfg_path``) at WORDS_NUM ``words_num``
+    (None: the preset's) over a vocabulary of ``n_words``: the config,
     random models from ``seed`` (random running statistics in the eval-mode
     Inception), one synthetic batch and the noise of one step, all on the
     CPU."""
     from sba_gan_tpu_torch.config import cfg_from_file
     from sba_gan_tpu_torch.data.cub import SyntheticDataset
     from sba_gan_tpu_torch.data.pipeline import collate
-    from sba_gan_tpu_torch.train.gan import build_models
     from sba_gan_tpu_torch.train.sample import noise_shape
 
     cfg = cfg_from_file(cfg_path or GAN_CFG)
-    cfg.TEXT.WORDS_NUM = 18
+    cfg.TEXT.WORDS_NUM = words_num or cfg.TEXT.WORDS_NUM
     cfg.TRAIN.BATCH_SIZE = batch_size
-    models = build_models(cfg, N_WORDS, seed=seed)
+    models = seeded_models(cfg, n_words, seed)
     random_bn_stats(models.image_encoder, torch.Generator().manual_seed(seed + 3))
     ds = SyntheticDataset(num_examples=batch_size, base_size=cfg.TREE.BASE_SIZE,
                           branch_num=cfg.TREE.BRANCH_NUM, words_num=cfg.TEXT.WORDS_NUM,
-                          n_words=N_WORDS, b_dcgan=cfg.GAN.B_DCGAN, seed=seed)
+                          n_words=n_words, b_dcgan=cfg.GAN.B_DCGAN, seed=seed)
     batch = collate([ds[i] for i in range(batch_size)])
     gen = torch.Generator().manual_seed(seed + 4)
     z = torch.randn(noise_shape(cfg, batch_size), generator=gen)
@@ -1012,7 +1091,13 @@ def gan_step_run(cfg, models, batch, z, eps, device, dtype=torch.float32, count=
                 launches=launches, seconds=seconds)
 
 
+# the step comparisons' arithmetic (float64 over every parameter of G and
+# the Ds: 16 s a comparison on the host at COCO's widths) runs on the card
+READINGS_DEVICE = torch.device("cuda")
+
+
 def _norm_rel(got, want) -> float:
+    got, want = got.to(READINGS_DEVICE), want.to(READINGS_DEVICE)
     return ((got - want).norm() / (want.norm() or 1.0)).item()
 
 
@@ -1052,9 +1137,11 @@ def param_readings(moving, still, lr) -> dict:
     largest = 0.0
     for (card, cpu), prefix in ((moving, "D"), (still, "G.")):
         for n in (n for n in cpu["grads"] if n.startswith(prefix)):
-            g_card, g_cpu = card["grads"][n], cpu["grads"][n]
-            diff = (card["tensors"][n].double() - cpu["tensors"][n].double()).abs()
-            past = diff - ulp * cpu["tensors"][n].double().abs()
+            g_card, g_cpu = (r["grads"][n].to(READINGS_DEVICE) for r in (card, cpu))
+            p_card, p_cpu = (r["tensors"][n].to(READINGS_DEVICE, torch.float64)
+                             for r in (card, cpu))
+            diff = (p_card - p_cpu).abs()
+            past = diff - ulp * p_cpu.abs()
             agree = (g_card - g_cpu).abs() <= 1e-3 * g_cpu.abs()
             sign = torch.sign(g_card) == torch.sign(g_cpu)
             for key, mask, vals in (("agreeing", agree, past),
@@ -1068,9 +1155,11 @@ def param_readings(moving, still, lr) -> dict:
     card, cpu = still
     ema_excess = 0.0
     for n, want in cpu["ema"].items():
-        dp = (card["tensors"][f"G.{n}"].double() - cpu["tensors"][f"G.{n}"].double()).abs()
-        diff = (card["ema"][n].double() - want.double()).abs()
-        slack = 1e-3 * dp + 2 * ulp * want.double().abs()
+        p_card, p_cpu, e_card, want = (t.to(READINGS_DEVICE, torch.float64) for t in (
+            card["tensors"][f"G.{n}"], cpu["tensors"][f"G.{n}"], card["ema"][n], want))
+        dp = (p_card - p_cpu).abs()
+        diff = (e_card - want).abs()
+        slack = 1e-3 * dp + 2 * ulp * want.abs()
         ema_excess = max(ema_excess, (diff - slack).max().item())
     return {"params_agreeing_excess": excess["agreeing"],
             "params_adam_excess": excess["adam"],
@@ -1174,6 +1263,14 @@ def gan_step_cpu_runs(inputs, count=True):
     return runs, dm
 
 
+def gan_step_cpu_refs(cfg_path=None, **inputs_kw):
+    """A GAN step phase's inputs (:func:`gan_step_inputs` of the preset
+    ``cfg_path`` at batch 8) and the CPU's runs of them, the launches not
+    counted, so that both are made in a thread beside phases that count."""
+    inputs = gan_step_inputs(SEED, 8, cfg_path, **inputs_kw)
+    return inputs, gan_step_cpu_runs(inputs, False)
+
+
 def gan_step_runs(seed=SEED, batch_size=8, cfg_path=None, inputs=None, cpu=None):
     """From one set of inputs (``inputs``, else made from ``seed``): the step
     on the card and on the CPU (float32, TF32 off), the same with the Ds held
@@ -1249,11 +1346,12 @@ def phase_gan_step(batch_size=8, cfg_path=None, phase="gan_step", inputs=None, c
 
 def phase_gan_bench():
     """The port bench at its default, batch 128 (or the largest that fits,
-    stated in its line), in this process: its line, then a summary.  It
-    must run at the precision whose step ``gan_step`` checked (GAN_TF32)."""
+    stated in its line), in this process, with the window and trace of
+    :data:`SHORT_BENCH`: its line, then a summary.  It must run at the
+    precision whose step ``gan_step`` checked (GAN_TF32)."""
     from sba_gan_tpu_torch import bench
 
-    line = bench.main([])
+    line = bench.main(SHORT_BENCH_ARGV)
     named = line["profile"]["hand_written_kernels"]
     per_step = {k: named[k]["launches_per_step"] for k in GAN_KERNELS}
     precision = {"cudnn.allow_tf32": GAN_TF32["cudnn"],
@@ -1274,13 +1372,15 @@ def phase_gan_bench():
     return line
 
 
-def phase_gan_cli(damsm_model_dir, out, batch_size=32, cfg_path=None, name="gan"):
-    """``main.main`` on the card: one epoch of synthetic data at full width
-    (bird_style, or the preset ``cfg_path``) with the pretrain CLI's
-    encoders, a checkpoint under ``out/name``, then a second call that
-    resumes for one more epoch; the kernel counts of each call checked per
-    step.  The checkpoint then restores into a trainer on the card, which
-    renders the EMA sample and the attention grid of one batch."""
+def phase_gan_cli(damsm_model_dir, out, batch_size=32, cfg_path=None, name="gan",
+                  data_dir=None, render=True):
+    """``main.main`` on the card: one epoch of synthetic data (or of the tree
+    ``data_dir``) at full width (bird_style, or the preset ``cfg_path``)
+    with the pretrain CLI's encoders, a checkpoint under ``out/name``, then
+    a second call that resumes for one more epoch; the kernel counts of each
+    call checked per step.  With ``render``, the checkpoint then restores
+    into a trainer on the card, which renders the EMA sample and the
+    attention grid of one batch."""
     import yaml
 
     from sba_gan_tpu_torch import main as gan_main
@@ -1295,7 +1395,8 @@ def phase_gan_cli(damsm_model_dir, out, batch_size=32, cfg_path=None, name="gan"
     yml = os.path.join(out, f"{name}.yml")
     with open(yml, "w") as f:
         yaml.safe_dump(raw, f)
-    argv = ["--cfg", yml, "--synthetic", "--output_dir", os.path.join(out, name)]
+    data = ["--data_dir", data_dir] if data_dir else ["--synthetic"]
+    argv = ["--cfg", yml, *data, "--output_dir", os.path.join(out, name)]
     wrappers = _kernel_wrappers()
     calls = []
     t_phase = time.perf_counter()
@@ -1317,27 +1418,31 @@ def phase_gan_cli(damsm_model_dir, out, batch_size=32, cfg_path=None, name="gan"
                         for n, v in damsm[k].items())
     cfg = cfg_from_file(yml)
     cfg.JAX.SEED = 100  # the CLI's --manualSeed default
-    ds = build_dataset(cfg, True, "train")
-    trainer = GANTrainer(cfg, os.path.join(out, name), ds, ds.n_words, ds.ixtoword,
-                         device="cuda")
-    resumed = trainer.resume()
-    batch = next(iter(DataLoader(ds, batch_size, shuffle=False, device="cuda")))
-    paths = trainer.save_img_results(batch, trainer.state.step)
-    pngs = [os.path.basename(p) for p in paths
-            if open(p, "rb").read(8) == b"\x89PNG\r\n\x1a\n"]
+    cfg.DATA_DIR = data_dir or cfg.DATA_DIR
+    ds = build_dataset(cfg, not data_dir, "train")
+    want_steps = len(ds) // batch_size
+    resumed, pngs = None, None
+    if render:
+        trainer = GANTrainer(cfg, os.path.join(out, name), ds, ds.n_words, ds.ixtoword,
+                             device="cuda")
+        resumed = trainer.resume()
+        batch = next(iter(DataLoader(ds, batch_size, shuffle=False, device="cuda")))
+        paths = trainer.save_img_results(batch, trainer.state.step)
+        pngs = [os.path.basename(p) for p in paths
+                if open(p, "rb").read(8) == b"\x89PNG\r\n\x1a\n"]
     finite = all(np.isfinite(v) for c in calls for e in c["epochs"] for v in e["logs"].values())
     say(f"{name}_cli", text_encoder=cfg.MODEL.TEXT_ENCODER, batch=batch_size,
         calls=[{k: v for k, v in c.items()} for c in calls],
         checkpoints=ckpt.steps(), checkpoint_step=saved["step"],
         encoders_from_net_e=encoders_kept, resumed_on_card=resumed, images=pngs,
         seconds=time.perf_counter() - t_phase)
-    want_steps = len(ds) // batch_size
-    ok = (finite and encoders_kept and resumed and ckpt.steps() == [0, 1]
+    ok = (finite and encoders_kept and ckpt.steps() == [0, 1]
           and saved["step"] == 2 * want_steps
           and [c["resumed_from"] for c in calls] == [None, 0]
           and all(c["steps"] == want_steps and c["launches"] == {
               k: n * want_steps for k, n in GAN_STEP_LAUNCHES.items()} for c in calls)
-          and pngs == [f"G_avg_{2 * want_steps}_0.png", f"attn_{2 * want_steps}.png"])
+          and (not render or (resumed and pngs == [f"G_avg_{2 * want_steps}_0.png",
+                                                   f"attn_{2 * want_steps}.png"])))
     if not ok:
         raise AssertionError(f"GAN CLI: {calls}, checkpoints {ckpt.steps()}, step "
                              f"{saved['step']}, encoders kept {encoders_kept}, images {pngs}")
@@ -1364,6 +1469,25 @@ EVAL_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 CLASSIFIER_TOL = {"probs": 1e-5, "pooled_rel": 1e-4}
 
 
+def made_up_words(rng, n=CUB_VOCAB):
+    """``n`` distinct made-up lower-case words of 3 to 8 letters."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    return sorted({"".join(rng.choice(letters, int(rng.integers(3, 9))))
+                   for _ in range(n * 2)})[:n]
+
+
+def write_smooth_jpeg(rng, size, path):
+    """A smooth random image of ``size`` (width, height) with a little
+    noise, as a JPEG at ``path``."""
+    from PIL import Image
+
+    w, h = size
+    low = rng.uniform(0, 255, (12, 16, 3)).astype(np.uint8)
+    arr = np.asarray(Image.fromarray(low).resize((w, h), Image.BICUBIC), np.int16)
+    arr = np.clip(arr + rng.integers(-12, 13, arr.shape), 0, 255).astype(np.uint8)
+    Image.fromarray(arr).save(path, quality=90)
+
+
 def write_cub_tree(root, seed=SEED):
     """A CUB-200-2011 layout under ``root`` (whose name holds ``birds``, so
     the reader crops to the boxes): ``CUB_TEST`` test and ``CUB_TRAIN``
@@ -1375,12 +1499,8 @@ def write_cub_tree(root, seed=SEED):
     captions.  Returns ``root``."""
     import pickle
 
-    from PIL import Image
-
     rng = np.random.default_rng(seed)
-    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
-    words = sorted({"".join(rng.choice(letters, int(rng.integers(3, 9))))
-                    for _ in range(CUB_VOCAB * 2)})[:CUB_VOCAB]
+    words = made_up_words(rng)
     base = os.path.join(root, "CUB_200_2011", "CUB_200_2011")
     w, h = CUB_IMAGE
     items = {"test": [], "train": []}
@@ -1392,10 +1512,7 @@ def write_cub_tree(root, seed=SEED):
             items[split].append((key, cls))
             os.makedirs(os.path.join(base, "images", os.path.dirname(key)), exist_ok=True)
             os.makedirs(os.path.join(root, "text", os.path.dirname(key)), exist_ok=True)
-            low = rng.uniform(0, 255, (12, 16, 3)).astype(np.uint8)
-            arr = np.asarray(Image.fromarray(low).resize((w, h), Image.BICUBIC), np.int16)
-            arr = np.clip(arr + rng.integers(-12, 13, arr.shape), 0, 255).astype(np.uint8)
-            Image.fromarray(arr).save(os.path.join(base, "images", key + ".jpg"), quality=90)
+            write_smooth_jpeg(rng, CUB_IMAGE, os.path.join(base, "images", key + ".jpg"))
             lines_img.append(f"{len(lines_img) + 1} {key}.jpg")
             bw, bh = int(rng.integers(w // 5, w * 3 // 5)), int(rng.integers(h // 5, h * 3 // 5))
             bx, by = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
@@ -1650,13 +1767,16 @@ def phase_cub_train(root, out, cfg_path=GAN_CFG, name="cub_train"):
     return launches
 
 
-def write_reference_checkpoints(gan_model_dir, damsm_model_dir, n_words, out):
-    """Reference-layout files: ``netG.pth`` from the GAN CLI's checkpoint
-    (its EMA parameters and G's running statistics; the word projection as
-    the reference's 1 x 1 conv), ``text_encoder.pth`` a seeded text encoder
-    at the tree's vocabulary (the pretrain phase's has the synthetic one,
-    and an embedding of another size must not load), ``image_encoder.pth``
-    the pretrain phase's image encoder.  Returns (netG, text encoder)."""
+def write_reference_checkpoints(gan_model_dir, damsm_model_dir, n_words, out, prefix="",
+                                own_text=False):
+    """Reference-layout files ``{prefix}netG.pth`` from the GAN CLI's
+    checkpoint (its EMA parameters and G's running statistics; the word
+    projection as the reference's 1 x 1 conv), ``text_encoder.pth`` a seeded
+    text encoder at the tree's vocabulary (the pretrain phase's, with
+    ``own_text``, where it was trained on the tree: else it has the
+    synthetic vocabulary, and an embedding of another size must not load),
+    ``image_encoder.pth`` the pretrain phase's image encoder.  Returns
+    (netG, text encoder)."""
     from sba_gan_tpu_torch.config import cfg_from_file
     from sba_gan_tpu_torch.models.text_rnn import init_weights as init_text_weights
     from sba_gan_tpu_torch.train.sample import build_text_encoder
@@ -1667,14 +1787,18 @@ def write_reference_checkpoints(gan_model_dir, damsm_model_dir, n_words, out):
     net_g.update(gan["g_ema"])
     net_g = {k: v[:, :, None, None] if k.endswith("att.conv_context.weight") else v
              for k, v in net_g.items()}
-    text = build_text_encoder(cfg_from_file(EVAL_CFG), n_words)
-    init_text_weights(text, torch.Generator().manual_seed(SEED + 3))
-    paths = {name: os.path.join(out, f"{name}.pth")
+    damsm = Checkpointer(damsm_model_dir).restore()
+    if own_text:
+        text = damsm["text_encoder"]
+    else:
+        encoder = build_text_encoder(cfg_from_file(EVAL_CFG), n_words)
+        init_text_weights(encoder, torch.Generator().manual_seed(SEED + 3))
+        text = encoder.state_dict()
+    paths = {name: os.path.join(out, f"{prefix}{name}.pth")
              for name in ("netG", "text_encoder", "image_encoder")}
     torch.save(net_g, paths["netG"])
-    torch.save(text.state_dict(), paths["text_encoder"])
-    torch.save(Checkpointer(damsm_model_dir).restore()["image_encoder"],
-               paths["image_encoder"])
+    torch.save(text, paths["text_encoder"])
+    torch.save(damsm["image_encoder"], paths["image_encoder"])
     return paths["netG"], paths["text_encoder"]
 
 
@@ -1691,12 +1815,18 @@ def _eval_models(cfg, net_g, net_e, n_words, device):
     return Sampler(cfg, g, text, device=device)
 
 
-def phase_eval_sampling(root, net_g, net_e, n_words, out):
-    """``main.main`` with eval_bird (``B_VALIDATION``) on the tree's test
-    split: one PNG per item, K4 twice per batch (counts set to 0 just
-    before).  Then the first batch from the same files and noise: at
-    PyTorch's defaults it must give the PNGs written, and with TF32 off the
-    card must match the CPU within SLICE_ATOL."""
+def phase_eval_sampling(root, net_g, net_e, n_words, out, cfg_path=EVAL_CFG, items=CUB_TEST,
+                        batch_size=EVAL_BATCH, name="eval_sampling", cpu_rows=None,
+                        timed=True):
+    """``main.main`` with eval_bird (or the preset ``cfg_path`` at its batch
+    ``batch_size``; ``B_VALIDATION``) on the tree's test split of ``items``:
+    one PNG per item, K4 twice per batch (counts set to 0 just before).
+    Then the first batch from the same files and noise: at PyTorch's
+    defaults it must give the PNGs written, and with TF32 off the card must
+    match the CPU within SLICE_ATOL (on its first ``cpu_rows`` rows, else
+    all).  Sampled images/s: with ``timed``, a trainer's ``sampling`` of
+    the split again; else over ``main.main``'s seconds (its model loading
+    included)."""
     from PIL import Image
 
     from sba_gan_tpu_torch import main as gan_main
@@ -1705,34 +1835,35 @@ def phase_eval_sampling(root, net_g, net_e, n_words, out):
     from sba_gan_tpu_torch.train.loop import GANTrainer
     from sba_gan_tpu_torch.utils.image import to_uint8
 
-    yml = _yaml_cfg(EVAL_CFG, os.path.join(out, "eval_sampling.yml"), B_VALIDATION=True,
-                    TRAIN={"NET_G": net_g, "NET_E": net_e})
+    yml = _yaml_cfg(cfg_path, os.path.join(out, f"{name}.yml"), B_VALIDATION=True,
+                    TRAIN={"NET_G": net_g, "NET_E": net_e, "BATCH_SIZE": batch_size})
     wrappers = _kernel_wrappers()
     reset_launches(wrappers)
     t0 = time.perf_counter()
     summary = gan_main.main(["--cfg", yml, "--data_dir", root, "--manualSeed", str(SEED),
-                             "--output_dir", os.path.join(out, "eval")])
+                             "--output_dir", os.path.join(out, name)])
     seconds = time.perf_counter() - t0
     launches = read_launches(wrappers)
     samples = summary["samples_dir"]
     pngs = sorted(os.listdir(samples))
-    batches = -(-CUB_TEST // EVAL_BATCH)
+    batches = -(-items // batch_size)
 
     cfg = cfg_from_file(yml)
     cfg.DATA_DIR, cfg.JAX.SEED = root, SEED  # the items' captions follow the seed
-    batch = next(iter(DataLoader(build_dataset(cfg, False, "test"), EVAL_BATCH,
+    batch = next(iter(DataLoader(build_dataset(cfg, False, "test"), batch_size,
                                  shuffle=False, drop_last=False)))
     gpu = _eval_models(cfg, net_g, net_e, n_words, "cuda")
-    z, eps = gpu.draw_noise(EVAL_BATCH, 0)  # sampling's seed of its first batch
+    z, eps = gpu.draw_noise(batch_size, 0)  # sampling's seed of its first batch
     written = np.stack([np.asarray(Image.open(os.path.join(
         samples, f"{k.replace('/', '_')}_s-1.png"))) for k in batch.keys])
     again = to_uint8(gpu.with_noise(batch.captions, batch.cap_lens, z, eps)[0][-1])
     png_gap = int(np.abs(again.astype(np.int16) - written).max())
     with tf32(cudnn=False, matmul=False):
         fakes_g, _ = gpu.with_noise(batch.captions, batch.cap_lens, z, eps)
+    rows = slice(cpu_rows)
     cpu = _eval_models(cfg, net_g, net_e, n_words, "cpu")
-    fakes_c, _ = cpu.with_noise(batch.captions, batch.cap_lens, z, eps)
-    errs = [float(np.abs(g - c).max()) for g, c in zip(fakes_g, fakes_c)]
+    fakes_c, _ = cpu.with_noise(batch.captions[rows], batch.cap_lens[rows], z[rows], eps[rows])
+    errs = [float(np.abs(g[rows] - c).max()) for g, c in zip(fakes_g, fakes_c)]
 
     # sampled images/s at batch 16: one batch's generation with its copy to
     # the host, the same queued back to back without the copy (CUDA events),
@@ -1743,30 +1874,33 @@ def phase_eval_sampling(root, net_g, net_e, n_words, out):
         t1 = time.perf_counter()
         gpu.with_noise(batch.captions, batch.cap_lens, z, eps)
         gen_s.append(time.perf_counter() - t1)
-    gen_rate = EVAL_BATCH / statistics.median(gen_s[1:])
+    gen_rate = batch_size / statistics.median(gen_s[1:])
     queued_ms = eager_ms(lambda: gpu.launch_with_noise(batch.captions, batch.cap_lens, z, eps),
                          iters=20)
-    test = build_dataset(cfg, False, "test")
-    trainer = GANTrainer(cfg, os.path.join(out, "eval_timed"), test, test.n_words,
-                         test.ixtoword, device="cuda")
-    trainer.load_torch_weights(net_g=net_g, net_e_text=net_e)
-    t1 = time.perf_counter()
-    trainer.sampling("valid")
-    sampling_rate = CUB_TEST / (time.perf_counter() - t1)
-    print(f"eval_sampling: {len(pngs)} PNGs in {seconds:.2f} s of main.main; sampling "
+    sampling_rate = items / seconds
+    if timed:
+        test = build_dataset(cfg, False, "test")
+        trainer = GANTrainer(cfg, os.path.join(out, f"{name}_timed"), test, test.n_words,
+                             test.ixtoword, device="cuda")
+        trainer.load_torch_weights(net_g=net_g, net_e_text=net_e)
+        t1 = time.perf_counter()
+        trainer.sampling("valid")
+        sampling_rate = items / (time.perf_counter() - t1)
+    print(f"{name}: {len(pngs)} PNGs in {seconds:.2f} s of main.main; sampling "
           f"{sampling_rate:.1f} images/s; generation {gen_rate:.1f} images/s at batch "
-          f"{EVAL_BATCH} ({queued_ms:.3f} ms a batch queued)", flush=True)
-    say("eval_sampling", pngs=len(pngs), launches=launches, batches=batches,
-        main_s=seconds, sampling_images_per_s=sampling_rate,
+          f"{batch_size} ({queued_ms:.3f} ms a batch queued)", flush=True)
+    say(name, preset=os.path.basename(cfg_path), batch=batch_size,
+        words_num=cfg.TEXT.WORDS_NUM, pngs=len(pngs), launches=launches, batches=batches,
+        main_s=seconds, sampling_images_per_s=sampling_rate, sampling_timed_apart=timed,
         generate_images_per_s=gen_rate, generate_batch_s=gen_s,
         generate_batch_queued_ms=queued_ms,
         png_vs_rerun_levels=png_gap, card_vs_cpu_max_abs_err=errs, atol=SLICE_ATOL,
-        shapes=[list(f.shape) for f in fakes_g])
+        card_vs_cpu_rows=len(fakes_c[-1]), shapes=[list(f.shape) for f in fakes_g])
     want = {k: 0 for k in wrappers}
     want["word_attention"] = 2 * batches
-    if not (len(pngs) == CUB_TEST and launches == want and png_gap <= 1
-            and max(errs) <= SLICE_ATOL and fakes_g[-1].shape == (EVAL_BATCH, 256, 256, 3)):
-        raise AssertionError(f"eval sampling: {len(pngs)} PNGs, launches {launches} (want "
+    if not (len(pngs) == items and launches == want and png_gap <= 1
+            and max(errs) <= SLICE_ATOL and fakes_g[-1].shape == (batch_size, 256, 256, 3)):
+        raise AssertionError(f"{name}: {len(pngs)} PNGs, launches {launches} (want "
                              f"{want}), PNG gap {png_gap}, card vs CPU {errs}")
     return launches["word_attention"]
 
@@ -2272,11 +2406,11 @@ def phase_generation_bf16(cfg, wordtoix):
 
 def phase_gan_bench_bf16():
     """``python -m sba_gan_tpu_torch.bench --dtype bfloat16`` in this process
-    at batch 128: its line, then a summary; K4 2, K1 1, K2 1 launches a
-    step."""
+    at batch 128 (:data:`SHORT_BENCH`): its line, then a summary; K4 2, K1
+    1, K2 1 launches a step."""
     from sba_gan_tpu_torch import bench
 
-    line = bench.main(["--dtype", "bfloat16"])
+    line = bench.main(["--dtype", "bfloat16", *SHORT_BENCH_ARGV])
     named = line["profile"]["hand_written_kernels"]
     per_step = {k: named[k]["launches_per_step"] for k in GAN_KERNELS}
     say("gan_bench_bf16", batch=line["batch"], dtype=line["dtype"],
@@ -2564,9 +2698,11 @@ def phase_pretrain_step_bert(inputs, cpu):
     return gpu["launches"]
 
 
-# bench.measure's timed and traced steps for the lines that stand beside the
-# gan_bench phases' full ones (its defaults: 20 and 3)
+# bench.measure's timed and traced steps for every bench line of this script
+# (its defaults: 20 and 3; the short windows read as the full ones, PERF.md)
 SHORT_BENCH = dict(steps=10, profiled=1)
+SHORT_BENCH_ARGV = ["--steps", str(SHORT_BENCH["steps"]),
+                    "--profiled", str(SHORT_BENCH["profiled"])]
 
 
 def phase_gan_bench_bert(style_lines):
@@ -2586,7 +2722,9 @@ def phase_gan_bench_bert(style_lines):
         d["GAN"].update(M_NUM=8, INIT_Z_CONCAT=False)
         cfg = cfg_from_dict(d)
         cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = dtype
-        line = bench.measure(cfg, cfg.TRAIN.BATCH_SIZE, torch.device("cuda"), **SHORT_BENCH)
+        line = bench.measure(cfg, cfg.TRAIN.BATCH_SIZE, torch.device("cuda"),
+                             models=seeded_models(cfg, bench.N_WORDS, bench.SEED),
+                             **SHORT_BENCH)
         named = line["profile"]["hand_written_kernels"]
         per_step = {k: named[k]["launches_per_step"] for k in GAN_KERNELS}
 
@@ -2853,7 +2991,7 @@ def phase_dist_nccl1(steps=3, batch=128):
     DIST1_SPREAD times C's distance; K4 2, K1 1, K2 1 launches a step."""
     from sba_gan_tpu_torch import bench
     from sba_gan_tpu_torch.config import cfg_from_dict
-    from sba_gan_tpu_torch.train.gan import GANStep, build_models, init_gan_state
+    from sba_gan_tpu_torch.train.gan import GANStep, init_gan_state
 
     t0 = time.perf_counter()
     wrappers = _kernel_wrappers()
@@ -2864,7 +3002,7 @@ def phase_dist_nccl1(steps=3, batch=128):
         for dtype, n in (("float32", steps), ("bfloat16", 1)):
             cfg = cfg_from_dict(copy.deepcopy(bench.FLAGSHIP))
             cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = dtype
-            models = build_models(cfg, N_WORDS, seed=SEED)
+            models = seeded_models(cfg, bench.N_WORDS, bench.SEED)
             args = bench.make_batch(cfg, batch, torch.device("cuda"), SEED)
 
             def run(world):
@@ -3131,8 +3269,9 @@ def phase_gan_bench_dist(plain_b128: dict):
         cfg = cfg_from_dict(copy.deepcopy(bench.FLAGSHIP))
         cfg.TRAIN.GRAD_ACCUM, cfg.TRAIN.GRAD_ACCUM_MODE = accum, mode
         with nccl_world_of_one(cfg) if nccl else contextlib.nullcontext():
-            lines[label] = _bench_summary(bench.measure(cfg, batch, torch.device("cuda"),
-                                                        detail=False, **SHORT_BENCH))
+            lines[label] = _bench_summary(bench.measure(
+                cfg, batch, torch.device("cuda"), detail=False,
+                models=seeded_models(cfg, bench.N_WORDS, bench.SEED), **SHORT_BENCH))
             if nccl:
                 lines[label]["collective_host_us"] = collective_host_us()
         gc.collect()
@@ -3154,7 +3293,20 @@ def _torchrun(module: str, argv) -> subprocess.Popen:
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", "-m", module, *argv]
     return subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+                            text=True, start_new_session=True)
+
+
+def _kill(proc: subprocess.Popen) -> str:
+    """Stops a :func:`_torchrun` process and its workers: SIGTERM, which
+    torchrun passes on to the workers it started in sessions of their own,
+    then SIGKILL to its process group if it has not ended within 30 s; its
+    output."""
+    proc.terminate()
+    try:
+        return proc.communicate(timeout=30)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        return proc.communicate()[0]
 
 
 def _finish(proc: subprocess.Popen, t0: float, timeout: float = 300.0) -> float:
@@ -3164,8 +3316,7 @@ def _finish(proc: subprocess.Popen, t0: float, timeout: float = 300.0) -> float:
     try:
         output, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        output, _ = proc.communicate()
+        output = _kill(proc)
     if proc.returncode != 0:
         raise AssertionError(f"{' '.join(proc.args)}: exit {proc.returncode}\n"
                              f"{output[-4000:]}")
@@ -3202,7 +3353,10 @@ def phase_dist_cli(out, batch_size=8, accum=3, device="cuda"):
     epoch of 4 steps saves in the middle of a window (micro-step 1 of 3),
     and a second call resumes and finishes it (step 8 at micro-step 2);
     ``pretrain`` (DAMSM/bird at those widths) runs one epoch the same way,
-    beside the first call."""
+    beside the first call.  A generator, so that the processes run beside
+    the caller's phases: the first ``next`` starts the first call and the
+    pretraining, the second waits for them and starts the resume, the last
+    waits for it and checks; closing it kills any process still running."""
     from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
 
     t0 = time.perf_counter()
@@ -3210,15 +3364,22 @@ def phase_dist_cli(out, batch_size=8, accum=3, device="cuda"):
     pyml = _cli_yaml(PRETRAIN_CFG, out, "dist_damsm", BATCH_SIZE=batch_size)
     gan_dir, damsm_dir = os.path.join(out, "dist_gan"), os.path.join(out, "dist_damsm")
     argv = ["--cfg", yml, "--synthetic", "--output_dir", gan_dir, "--device", device]
-    pretraining = _torchrun("sba_gan_tpu_torch.pretrain",
-                            ["--cfg", pyml, "--synthetic", "--max_epoch", "1",
-                             "--output_dir", damsm_dir, "--device", device])
-    seconds = {"gan_epoch_0": _finish(_torchrun("sba_gan_tpu_torch.main",
-                                                argv + ["--max_epoch", "1"]), t0),
-               "pretrain_epoch_0": _finish(pretraining, t0)}
-    t1 = time.perf_counter()
-    seconds["gan_resume_epoch_1"] = _finish(
-        _torchrun("sba_gan_tpu_torch.main", argv + ["--max_epoch", "2"]), t1)
+    procs = [_torchrun("sba_gan_tpu_torch.main", argv + ["--max_epoch", "1"]),
+             _torchrun("sba_gan_tpu_torch.pretrain",
+                       ["--cfg", pyml, "--synthetic", "--max_epoch", "1",
+                        "--output_dir", damsm_dir, "--device", device])]
+    try:
+        yield
+        seconds = {"gan_epoch_0": _finish(procs[0], t0),
+                   "pretrain_epoch_0": _finish(procs[1], t0)}
+        t1 = time.perf_counter()
+        procs.append(_torchrun("sba_gan_tpu_torch.main", argv + ["--max_epoch", "2"]))
+        yield
+        seconds["gan_resume_epoch_1"] = _finish(procs[2], t1)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                _kill(proc)
     ckpt = Checkpointer(os.path.join(gan_dir, "Model"))
     first, second = ckpt.restore(0), ckpt.restore(1)
     damsm = Checkpointer(os.path.join(damsm_dir, "Model"))
@@ -3405,15 +3566,14 @@ def phase_dcgan_cli(damsm_model_dir, out, cub_root):
 
 def phase_gan_step_dcgan(inputs, cpu, batch_size=8):
     """:func:`phase_gan_step` on bird_attnDCGAN2 (R_NUM 0, lambda 1;
-    WORDS_NUM 18, batch 8), the same bounds, with the CPU's runs
-    (``cpu``, a future of :func:`gan_step_cpu_runs` of ``inputs``, made
-    beside earlier phases); one D, DNet256 without ``UNCOND_DNET``; the
+    WORDS_NUM 18, batch 8), the same bounds, with the CPU's runs ``cpu`` of
+    ``inputs`` (:func:`gan_step_cpu_refs`, made beside earlier phases); one
+    D, DNet256 without ``UNCOND_DNET``; the
     mapping net's gradient finite and nonzero on the card and on the CPU
     (its w code styles both refinement stages through AdaIN)."""
     t0 = time.perf_counter()
     ds = inputs[1].discriminators
-    launches, runs = phase_gan_step(batch_size, DCGAN_CFG, "gan_step_dcgan", inputs,
-                                    cpu.result())
+    launches, runs = phase_gan_step(batch_size, DCGAN_CFG, "gan_step_dcgan", inputs, cpu)
     mapping = {k: float(torch.sqrt(sum((g ** 2).sum() for n, g in runs[k]["grads"].items()
                                        if n.startswith("G.mapping_net."))))
                for k in ("cuda", "cpu", "cuda_still", "cpu_still", "cpu64_still")}
@@ -3444,8 +3604,9 @@ def phase_gan_bench_dcgan(style_lines):
         cfg.TEXT.WORDS_NUM = bench.FLAGSHIP["TEXT"]["WORDS_NUM"]
         cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = dtype
         label = f"{dtype}_b{batch}"
-        lines[label] = _bench_summary(bench.measure(cfg, batch, torch.device("cuda"),
-                                                    detail=False, **SHORT_BENCH))
+        lines[label] = _bench_summary(bench.measure(
+            cfg, batch, torch.device("cuda"), detail=False,
+            models=seeded_models(cfg, bench.N_WORDS, bench.SEED), **SHORT_BENCH))
         gc.collect()
         torch.cuda.empty_cache()
         line = lines[label]
@@ -3464,6 +3625,195 @@ def phase_gan_bench_dcgan(style_lines):
         seconds=time.perf_counter() - t0)
     if bad:
         raise AssertionError(f"gan_bench_dcgan: {bad}")
+    return {k: v["kernel_launches_per_step"] for k, v in lines.items()}
+
+
+# ---------------------------------------------------------------------------
+# AttnGAN2 on COCO (configs/coco_attn2.yml, eval_coco.yml, DAMSM/coco.yml) at
+# its published widths: GF_DIM 48 (K4's generic-D instance at D 48), DF_DIM
+# 96, R_NUM 3, WORDS_NUM 12 / 20 / 15, lambda 50, 5 captions an image
+# ---------------------------------------------------------------------------
+COCO_CFG = os.path.join(CONFIGS, "coco_attn2.yml")
+COCO_EVAL_CFG = os.path.join(CONFIGS, "eval_coco.yml")
+COCO_PRETRAIN_CFG = os.path.join(CONFIGS, "DAMSM", "coco.yml")
+COCO_N_WORDS = 27297  # the vocabulary of AttnGAN's COCO caption pickle
+COCO_D = 48  # GF_DIM: the width of the generator's word attention
+COCO_PRETRAIN_BATCH = 48  # DAMSM/coco's
+COCO_BENCH = (("float32", 14), ("float32", 128), ("bfloat16", 14), ("bfloat16", 128))
+COCO_TEST = 100  # eval_coco's batch: one batch of the test split
+COCO_TRAIN = 96  # two DAMSM/coco steps of 48; six coco_attn2 steps of 14
+COCO_IMAGE = (640, 480)  # COCO's typical width x height
+COCO_CPU_ROWS = 4  # the sampling batch's rows held to the CPU
+
+
+def _caption_lens(b, t, seed, shortest=2):
+    """``b`` caption lengths in [shortest, t], both ends present."""
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.randint(shortest, t + 1, (b,), generator=gen).tolist()
+    lens[0], lens[-1] = shortest, t
+    return lens
+
+
+def phase_kernels_coco():
+    """K4's generic-D instance at COCO's D 48 against its plain version: at
+    the coco_attn2 step's shapes (B 14, QL 64^2 and 128^2, T 12, captions of
+    2 to 12 words) in float32 and bfloat16, at eval_coco's batch (B 100, QL
+    64^2, T 20) and at one generation (B 1, QL 128^2, T 20) in float32, with
+    the library's three calls beside; then K1-K3 at DAMSM/coco's pretrain
+    shape (B 48, T 15, R 289, D 256).  The tolerances of the D 32 and B 32
+    rows."""
+    reps = dict(calls=5, replays=4)
+    rows = {}
+    lens = _caption_lens(14, 12, SEED + 14)
+    for k, ql in enumerate((64 * 64, 128 * 128)):
+        row = word_attention_case(14, ql, 12, COCO_D, lens, seed=150 + k, reps=reps)
+        say("kernel", name="word_attention", case="coco_step", **row)
+        rows[f"coco_step_ql{ql}"] = row
+        rows[f"coco_step_ql{ql}_bf16"] = word_attention_bf16_case(
+            14, ql, 12, COCO_D, lens, seed=150 + k, reps=reps, case="coco_step")
+    for label, b, ql, lens in (("coco_sampling", 100, 64 * 64, _caption_lens(100, 20, SEED)),
+                               ("coco_generation", 1, 128 * 128, [13])):
+        row = word_attention_case(b, ql, 20, COCO_D, lens, seed=152 + b, reps=reps)
+        say("kernel", name="word_attention", case=label, **row)
+        rows[label] = row
+    damsm = damsm_case(COCO_PRETRAIN_BATCH, 15, seed=160)
+    for name, row in damsm.items():
+        say("kernel", name=name, case="coco_pretrain", **row)
+    return rows, damsm
+
+
+def coco_pretrain_cpu_refs():
+    """The pretrain_step_coco phase's inputs (the COCO vocabulary) and the
+    CPU's run of them, its launches not counted, so that it runs in a
+    thread beside phases that count."""
+    from sba_gan_tpu_torch.config import cfg_from_file
+
+    inputs = pretrain_step_inputs(cfg_from_file(COCO_PRETRAIN_CFG), COCO_PRETRAIN_BATCH,
+                                  n_words=COCO_N_WORDS)
+    return inputs, pretrain_step_run(inputs, "cpu", count=False)
+
+
+def write_coco_tree(root, seed=SEED):
+    """A COCO layout under ``root`` (whose path holds no ``birds``, so the
+    reader takes no boxes): flat ``images/`` of smooth random JPEGs of
+    COCO_IMAGE named as COCO 2014's, ``text/`` with the preset's 5 captions
+    an image over CUB_VOCAB made-up words, ``train``/``test`` filename
+    pickles of COCO_TRAIN and COCO_TEST items, and no class pickles (every
+    image its own class).  Returns ``root``."""
+    import pickle
+
+    rng = np.random.default_rng(seed + 7)
+    words = made_up_words(rng)
+    for d in ("images", "text", "train", "test"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for split, n, year in (("train", COCO_TRAIN, "train2014"), ("test", COCO_TEST, "val2014")):
+        keys = [f"COCO_{year}_{i + 1:012d}" for i in range(n)]
+        for key in keys:
+            write_smooth_jpeg(rng, COCO_IMAGE, os.path.join(root, "images", key + ".jpg"))
+            with open(os.path.join(root, "text", key + ".txt"), "w") as f:
+                for _ in range(5):
+                    f.write(" ".join(rng.choice(words, int(rng.integers(5, 19)))) + "\n")
+        with open(os.path.join(root, split, "filenames.pickle"), "wb") as f:
+            pickle.dump(keys, f)
+    return root
+
+
+def phase_coco_tree(root):
+    """The COCO-layout tree, then its test split read with 4 reader threads:
+    COCO_TEST items without boxes, each its own class, 5 captions an item,
+    three image sizes; items/s."""
+    from sba_gan_tpu_torch.config import cfg_from_file
+    from sba_gan_tpu_torch.data.pipeline import DataLoader, build_dataset
+
+    t0 = time.perf_counter()
+    write_coco_tree(root)
+    written = time.perf_counter() - t0
+    cfg = cfg_from_file(COCO_EVAL_CFG)
+    cfg.DATA_DIR = root
+    test = build_dataset(cfg, False, "test")
+    t1 = time.perf_counter()
+    (batch,) = list(DataLoader(test, COCO_TEST, shuffle=False, drop_last=False,
+                               num_workers=4))
+    rate = COCO_TEST / (time.perf_counter() - t1)
+    shapes = [list(x.shape[1:]) for x in batch.imgs]
+    say("coco_tree", write_s=written, items_per_s_4_threads=rate, n_words=test.n_words,
+        test_items=len(test), train_items=len(build_dataset(cfg, False, "train")),
+        boxes=test.bbox is not None, captions=len(test.captions), image_shapes=shapes)
+    if not (test.bbox is None and len(test) == COCO_TEST
+            and len(test.captions) == 5 * COCO_TEST
+            and test.class_id.tolist() == list(range(COCO_TEST))
+            and shapes == [[s, s, 3] for s in (64, 128, 256)]):
+        raise AssertionError(f"coco_tree: boxes {test.bbox is not None}, {len(test)} items, "
+                             f"{len(test.captions)} captions, images {shapes}")
+    return test.n_words
+
+
+def phase_coco_cli(root, out, n_words):
+    """The three user paths of the COCO presets on the tree ``root``:
+    ``pretrain.main`` with DAMSM/coco (one epoch: two steps of 48, two
+    evaluation batches, a checkpoint; K1 4, K2 2, K3 2); ``main.main`` with
+    coco_attn2 and that checkpoint as TRAIN.NET_E (batch 14: an epoch of 6
+    steps, save, a resume for another; K4 2, K1 1, K2 1 a step; the
+    rendering is the GAN CLI phase's);
+    its EMA G as a reference-layout ``netG.pth`` beside the pretrained text
+    encoder; ``main.main`` with eval_coco and ``B_VALIDATION`` (one batch of
+    COCO_TEST PNGs, K4 twice; its first COCO_CPU_ROWS images on the card
+    against the CPU).  Returns each path's launches."""
+    damsm = os.path.join(out, "coco_damsm")
+    pretrain_launches = phase_pretrain_cli(COCO_PRETRAIN_CFG, damsm, root, "coco_pretrain_cli")
+    calls = phase_gan_cli(os.path.join(damsm, "Model"), out, 14, COCO_CFG, "coco_gan", root,
+                          render=False)
+    net_g, net_e = write_reference_checkpoints(
+        os.path.join(out, "coco_gan", "Model"), os.path.join(damsm, "Model"), n_words, out,
+        "coco_", own_text=True)
+    sampling = phase_eval_sampling(root, net_g, net_e, n_words, out, COCO_EVAL_CFG, COCO_TEST,
+                                   COCO_TEST, "coco_sampling", COCO_CPU_ROWS, timed=False)
+    return {"pretrain_cli_epoch": pretrain_launches,
+            "gan_cli_calls": [c["launches"] for c in calls],
+            "sampling_word_attention": sampling}
+
+
+def phase_gan_bench_coco(style_lines):
+    """``bench.measure`` (no phase split or FLOP count; :data:`SHORT_BENCH`)
+    with the coco_attn2 keys (WORDS_NUM 12, the COCO vocabulary's seeded
+    weights) at the preset's batch 14 and at 128 (or the largest of
+    ``bench.FALLBACK_BATCHES`` that fits, stated) in float32 and bfloat16,
+    beside the bird_style lines of this call (``style_lines``): images/s, ms
+    a step, device ms and launches a step, idle share, peak memory, each
+    kernel's device ms a step; K4 2, K1 1, K2 1 a step."""
+    from sba_gan_tpu_torch import bench
+    from sba_gan_tpu_torch.config import cfg_from_file
+
+    t0 = time.perf_counter()
+    lines, bad = {}, []
+    for dtype, batch in COCO_BENCH:
+        cfg = cfg_from_file(COCO_CFG)
+        cfg.JAX.DTYPE = cfg.JAX.LOSS_DTYPE = dtype
+        label = f"{dtype}_b{batch}"
+        r = bench.measure(cfg, batch, torch.device("cuda"), detail=False,
+                          models=seeded_models(cfg, COCO_N_WORDS, SEED), **SHORT_BENCH)
+        named = r["profile"]["hand_written_kernels"]
+        lines[label] = dict(_bench_summary(r), kernel_ms_per_step={
+            k: named[k]["device_ms_per_step"] for k in GAN_KERNELS})
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+        line = lines[label]
+        if not line["finite"] or line["kernel_launches_per_step"] != GAN_STEP_LAUNCHES:
+            bad.append(f"{label}: finite {line['finite']}, "
+                       f"launches {line['kernel_launches_per_step']}")
+    style = {dtype: {"batch": ln["batch"], "images_per_sec": ln["value"],
+                     "device_ms_per_step": ln["profile"]["device_ms_per_step"],
+                     "launches_per_step": ln["profile"]["launches_per_step"],
+                     "device_idle_share": ln["profile"]["device_idle_share"],
+                     "peak_memory_bytes": ln["peak_memory_bytes"]}
+             for dtype, ln in style_lines.items()}
+    say("gan_bench_coco", lines=lines, bird_style=style,
+        tf32={"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+              "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32},
+        seconds=time.perf_counter() - t0)
+    if bad:
+        raise AssertionError(f"gan_bench_coco: {bad}")
     return {k: v["kernel_launches_per_step"] for k, v in lines.items()}
 
 
@@ -3489,29 +3839,37 @@ def main() -> int:
 
     name, smi = phase_device()
     phase_build()
-    rows, gan_rows = phase_kernels()
-    rows16 = phase_kernels_bf16()
-    damsm_rows = phase_damsm_kernels()
-    damsm_rows16 = phase_damsm_kernels_bf16()
-    cfg = preset("eval_bird")
-    wordtoix, ixtoword = synthetic_vocab(N_WORDS)
-    damsm_cfg = preset("DAMSM/bird")
     from concurrent.futures import ThreadPoolExecutor
 
     # one thread computes the CPU's reference runs (on CPU_POOL_THREADS of
     # torch's threads, a setting of that thread) beside phases whose host
-    # time is no metric: the GAN step's beside the pretraining phases, the
-    # BERT steps' beside the GAN and BERT CLIs, the accumulation window's
-    # beside the ranks, the DCGAN step's beside the torchrun and DCGAN CLIs
+    # time is no metric: the GAN step's beside the kernel rows (their device
+    # times come from CUDA graphs; their eager times, and the serve phase's
+    # latencies, are read beside it) and the pretraining phases, the BERT
+    # steps' beside the GAN and BERT CLIs, the accumulation window's beside
+    # the ranks, the DCGAN and COCO steps' beside the torchrun, DCGAN and
+    # COCO CLIs
     cpu_pool = ThreadPoolExecutor(1, initializer=torch.set_num_threads,
                                   initargs=(CPU_POOL_THREADS,))
+    dist_cli = None
     try:
+        # the bird step's weights are drawn here, not in the pool's thread: a
+        # draw's orthogonal factors depend on the drawing thread's count of
+        # torch threads in their last bits, and dist_gloo2's ranks draw them
+        # on their main threads
+        gan_inputs = gan_step_inputs()
+        gan_cpu = cpu_pool.submit(gan_step_cpu_runs, gan_inputs, False)
+        rows, gan_rows = phase_kernels()
+        rows16 = phase_kernels_bf16()
+        damsm_rows = phase_damsm_kernels()
+        damsm_rows16 = phase_damsm_kernels_bf16()
+        cfg = preset("eval_bird")
+        wordtoix, ixtoword = synthetic_vocab(N_WORDS)
+        damsm_cfg = preset("DAMSM/bird")
         with tempfile.TemporaryDirectory() as out:
             sampler = phase_slice(cfg, wordtoix)
             launches = phase_serve(cfg, sampler, wordtoix, ixtoword)
             launches16 = phase_generation_bf16(cfg, wordtoix)
-            gan_inputs = gan_step_inputs()
-            gan_cpu = cpu_pool.submit(gan_step_cpu_runs, gan_inputs, False)
             pretrain_runs = phase_pretrain_step(damsm_cfg, batch_size=32)
             pretrain16 = phase_pretrain_step_bf16(damsm_cfg, 32, pretrain_runs)
             chunks_launches = phase_pretrain_step_chunks(damsm_cfg, 32, pretrain_runs)
@@ -3552,16 +3910,34 @@ def main() -> int:
             accum_launches = phase_grad_accum(inputs, cpu_window.result())
             del inputs, cpu_window
             bench_dist_launches = phase_gan_bench_dist(style_lines["float32"])
-            dcgan_inputs = gan_step_inputs(SEED, 8, DCGAN_CFG)
-            dcgan_cpu = cpu_pool.submit(gan_step_cpu_runs, dcgan_inputs, False)
-            phase_dist_cli(out)
+            dcgan_refs = cpu_pool.submit(gan_step_cpu_refs, DCGAN_CFG)
+            coco_pretrain_refs = cpu_pool.submit(coco_pretrain_cpu_refs)
+            coco_gan_refs = cpu_pool.submit(gan_step_cpu_refs, COCO_CFG, words_num=None,
+                                            n_words=COCO_N_WORDS)
+            dist_cli = phase_dist_cli(out)  # its torchrun processes beside the CLIs below
+            next(dist_cli)
             dcgan_cli_launches, dcgan_cub_launches = phase_dcgan_cli(
                 os.path.join(out, "damsm", "Model"), out, tree)
             dcgan_serve_launches = phase_serve_dcgan(wordtoix, ixtoword, out)
-            dcgan_step_launches = phase_gan_step_dcgan(dcgan_inputs, dcgan_cpu)
-            del dcgan_inputs, dcgan_cpu
+            next(dist_cli)
+            coco_tree = os.path.join(out, "coco")
+            coco_cli = phase_coco_cli(coco_tree, out, phase_coco_tree(coco_tree))
+            next(dist_cli, None)
+            dcgan_step_launches = phase_gan_step_dcgan(*dcgan_refs.result())
+            del dcgan_refs
+            inputs, cpu = coco_pretrain_refs.result()
+            coco_pretrain = phase_pretrain_step(inputs[0], COCO_PRETRAIN_BATCH,
+                                                "pretrain_step_coco", inputs,
+                                                cpu)["cuda"]["launches"]
+            inputs, cpu = coco_gan_refs.result()
+            coco_step_launches, _ = phase_gan_step(8, COCO_CFG, "gan_step_coco", inputs, cpu)
+            del inputs, cpu, coco_pretrain_refs, coco_gan_refs
+            coco_rows, coco_damsm_rows = phase_kernels_coco()
             dcgan_bench_launches = phase_gan_bench_dcgan(style_lines)
+            coco_bench_launches = phase_gan_bench_coco(style_lines)
     finally:
+        if dist_cli is not None:
+            dist_cli.close()
         cpu_pool.shutdown(wait=True, cancel_futures=True)
     dist_paths = {  # each kernel's launches on the data-parallel and accumulation paths
         k: {"grad_accum_micro_steps": {m: [c[k] for c in v] for m, v in accum_launches.items()},
@@ -3582,6 +3958,14 @@ def main() -> int:
             "pretrain_chunks_memory_per_step": {b: v[k] for b, v in chunks_memory.items()},
             "profiling_3_steps": profiling_launches[k]}
         for k in DAMSM_KERNELS}
+    coco_paths = {  # each kernel's launches on the COCO presets' paths
+        k: {"pretrain_step_coco": coco_pretrain[k], "gan_step_coco": coco_step_launches[k],
+            "coco_pretrain_cli_epoch": coco_cli["pretrain_cli_epoch"][k],
+            "coco_gan_cli_calls": [c[k] for c in coco_cli["gan_cli_calls"]],
+            "coco_sampling_batch_of_100": (coco_cli["sampling_word_attention"]
+                                           if k == "word_attention" else 0),
+            "coco_bench_per_step": {b: v[k] for b, v in coco_bench_launches.items()}}
+        for k in GAN_KERNELS}
     bert_paths = {  # each kernel's launches on the BERT paths
         k: {"bird_bert_gan_step": bert_gan_launches[k],
             "bird_mixing_gan_step": mixing_launches[k],
@@ -3622,6 +4006,8 @@ def main() -> int:
         "bert_paths": bert_paths["word_attention"],
         "dist_paths": dist_paths["word_attention"],
         "dcgan_paths": dcgan_paths["word_attention"],
+        "coco_paths": coco_paths["word_attention"],
+        "coco": {label: {k: r[k] for k in gan_keys} for label, r in coco_rows.items()},
     }]
     for kname, (source, replaces) in DAMSM_KERNELS.items():
         row, gan = damsm_rows["pretrain"][kname], damsm_rows["gan_step"][kname]
@@ -3642,6 +4028,10 @@ def main() -> int:
             "dist_paths": dist_paths[kname],
             "dcgan_paths": dcgan_paths[kname],
             "chunks_paths": chunks_paths[kname],
+            "coco_paths": coco_paths[kname],
+            "coco_pretrain": {k: coco_damsm_rows[kname][k] for k in (
+                "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "eager_ms",
+                "bound_tc_ms", "max_abs_err")},
         })
     row16, gan_rows16 = rows16
     kernels.append({

@@ -2,6 +2,7 @@
 
     python -m sba_gan_tpu_torch.bench [--device cuda] [--dtype float32|bfloat16]
         [--batch B] [--grad_accum K --accum_mode window|dfresh]
+        [--steps S --profiled P]
     torchrun --standalone --nproc_per_node N -m sba_gan_tpu_torch.bench
 
 The workload of the JAX package's ``bench.py``: bird_style at BRANCH_NUM 3
@@ -54,7 +55,7 @@ import torch
 
 from sba_gan_tpu_torch.config import cfg_from_dict
 from sba_gan_tpu_torch.parallel import dist
-from sba_gan_tpu_torch.train.gan import GANStep, build_models, init_gan_state
+from sba_gan_tpu_torch.train.gan import GANModels, GANStep, build_models, init_gan_state
 
 FLAGSHIP = {
     "TREE": {"BRANCH_NUM": 3, "BASE_SIZE": 64},
@@ -244,16 +245,18 @@ def component_ms(step, args_, repeats: int) -> Dict[str, float]:
 
 
 def run(cfg, batch: int, device, detail: bool = True, steps: int = STEPS,
-        profiled: int = PROFILE_STEPS) -> Dict:
+        profiled: int = PROFILE_STEPS, models: Optional[GANModels] = None) -> Dict:
     """The step at global batch ``batch``: the timed window of ``steps``
     steps and the profile of ``profiled``; with ``detail`` also the phases,
-    the G and Inception passes alone and the FLOP count (and mfu)."""
+    the G and Inception passes alone and the FLOP count (and mfu).  The
+    networks are a copy of ``models``, else drawn from ``SEED``."""
     cfg = copy.deepcopy(cfg)
     cfg.TRAIN.BATCH_SIZE = batch
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    state = init_gan_state(cfg, build_models(cfg, N_WORDS, seed=SEED), device)
+    models = build_models(cfg, N_WORDS, seed=SEED) if models is None else copy.deepcopy(models)
+    state = init_gan_state(cfg, models, device)
     step = GANStep(cfg, state, seed=SEED)
     args_ = make_batch(cfg, batch, device, SEED)
     t0 = time.perf_counter()
@@ -331,14 +334,15 @@ def precision(cfg) -> Dict[str, str]:
 
 
 def measure(cfg, batch: int, device, detail: bool = True, steps: int = STEPS,
-            profiled: int = PROFILE_STEPS) -> Dict:
-    """:func:`run` at ``batch`` (``steps`` timed, ``profiled`` traced); on
-    running out of card memory, the peak it reached is recorded and the next
-    smaller batch of FALLBACK_BATCHES runs."""
+            profiled: int = PROFILE_STEPS, models: Optional[GANModels] = None) -> Dict:
+    """:func:`run` at ``batch`` (``steps`` timed, ``profiled`` traced, on a
+    copy of ``models`` if given); on running out of card memory, the peak it
+    reached is recorded and the next smaller batch of FALLBACK_BATCHES
+    runs."""
     oom = []
     for b in (batch,) + tuple(x for x in FALLBACK_BATCHES if x < batch):
         try:
-            result = run(cfg, b, device, detail, steps, profiled)
+            result = run(cfg, b, device, detail, steps, profiled, models)
         except torch.cuda.OutOfMemoryError as e:
             oom.append({"batch": b, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                         "error": str(e).splitlines()[0]})
@@ -360,6 +364,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p.add_argument("--grad_accum", type=int, default=1, help="TRAIN.GRAD_ACCUM")
     p.add_argument("--accum_mode", choices=("window", "dfresh"), default="window",
                    help="TRAIN.GRAD_ACCUM_MODE")
+    p.add_argument("--steps", type=int, default=STEPS, help="the timed window's steps")
+    p.add_argument("--profiled", type=int, default=PROFILE_STEPS,
+                   help="the steps traced by the profiler")
     args = p.parse_args(argv)
     cuda = args.device.startswith("cuda")
     cfg = cfg_from_dict(copy.deepcopy(FLAGSHIP if cuda else TINY))
@@ -367,7 +374,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     cfg.TRAIN.GRAD_ACCUM, cfg.TRAIN.GRAD_ACCUM_MODE = args.grad_accum, args.accum_mode
     batch = args.batch or cfg.TRAIN.BATCH_SIZE
     with dist.distributed(cfg, args.device) as device:
-        result = measure(cfg, batch, device)
+        result = measure(cfg, batch, device, steps=args.steps, profiled=args.profiled)
         if dist.is_main():
             return _line(args, cfg, batch, result)
         return {}

@@ -102,13 +102,19 @@ def build_models(cfg, n_words: int, seed: Optional[int] = None) -> GANModels:
         discriminators=tuple(build_discriminators(cfg)),
     )
     if seed is not None:
-        gen = torch.Generator().manual_seed(seed)
-        init_text_weights(models.text_encoder, gen)
-        init_image_weights(models.image_encoder, gen)
-        init_weights(models.generator, gen)
-        for d in models.discriminators:
-            init_weights(d, gen)
+        init_models(models, seed)
     return models
+
+
+def init_models(models: GANModels, seed: int) -> None:
+    """Random weights drawn from ``seed`` into ``models``, in place: the
+    weights :func:`build_models` gives with that seed."""
+    gen = torch.Generator().manual_seed(seed)
+    init_text_weights(models.text_encoder, gen)
+    init_image_weights(models.image_encoder, gen)
+    init_weights(models.generator, gen)
+    for d in models.discriminators:
+        init_weights(d, gen)
 
 
 class GANTrainState:

@@ -57,6 +57,10 @@ N_WORDS, B, T, SIZE, LR = 30, 8, 6, 75, 2e-3
 TINY = {"TREE": {"BRANCH_NUM": 1}, "TEXT": {"EMBEDDING_DIM": 32, "WORDS_NUM": T},
         "MODEL": {"INCEPTION_INPUT": SIZE}, "TRAIN": {"ENCODER_LR": LR}}
 GRAD = dict(rtol=1e-4, atol=1e-6)
+# DAMSM/coco.yml's structure at the tiny widths: WORDS_NUM 15, ENCODER_LR
+# 0.002 (LR), CAPTIONS_PER_IMAGE 5 (the reader's)
+COCO_T = 15
+COCO = {**TINY, "TEXT": {**TINY["TEXT"], "WORDS_NUM": COCO_T, "CAPTIONS_PER_IMAGE": 5}}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -70,15 +74,20 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def make_batch():
+def make_batch(coco=False):
+    """One batch of B: CUB-like (six classes, captions of up to T words) or,
+    with ``coco``, as DAMSM/coco.yml reads COCO (captions of up to COCO_T
+    words, every image its own class)."""
     rng = np.random.default_rng(11)
+    t = COCO_T if coco else T
     img = rng.uniform(-1, 1, (B, SIZE, SIZE, 3))
-    cap_lens = rng.integers(1, T + 1, (B,)).astype(np.int32)
-    cap_lens[0], cap_lens[1] = 1, T
-    captions = np.zeros((B, T), np.int32)
+    cap_lens = rng.integers(1, t + 1, (B,)).astype(np.int32)
+    cap_lens[0], cap_lens[1] = 1, t
+    captions = np.zeros((B, t), np.int32)
     for i, n in enumerate(cap_lens):
         captions[i, :n] = rng.integers(1, N_WORDS, (n,))
-    class_ids = np.array([0, 1, 0, 2, 3, 1, 4, 5], np.int32)
+    class_ids = (np.arange(B, dtype=np.int32) if coco
+                 else np.array([0, 1, 0, 2, 3, 1, 4, 5], np.int32))
     return img, captions, cap_lens, class_ids
 
 
@@ -150,8 +159,8 @@ def jax_init():
     return models, trainer, state
 
 
-def _jax_args():
-    return tuple(jnp.asarray(a) for a in make_batch())
+def _jax_args(coco=False):
+    return tuple(jnp.asarray(a) for a in make_batch(coco))
 
 
 @pytest.fixture(scope="module")
@@ -167,9 +176,10 @@ def jax_run(jax_init):
     return out
 
 
-def _port_trainer(run, chunks=1):
-    """The port's trainer (float64) from the weights of a JAX run's state."""
-    cfg = cfg_from_dict({**TINY, "JAX": {"DAMSM_CHUNKS": chunks}})
+def _port_trainer(run, chunks=1, raw=TINY):
+    """The port's trainer (float64) of the config ``raw`` from the weights
+    of a JAX run's state."""
+    cfg = cfg_from_dict({**raw, "JAX": {"DAMSM_CHUNKS": chunks}})
     models = build_damsm_models(cfg, N_WORDS)
     s = run["state"]
     models.text_encoder.load_state_dict(W.rnn_encoder_state_dict(s["text"]))
@@ -179,18 +189,18 @@ def _port_trainer(run, chunks=1):
     return DAMSMTrainer(cfg, models, device="cpu")
 
 
-def _port_batch():
-    img, captions, cap_lens, class_ids = make_batch()
+def _port_batch(coco=False):
+    img, captions, cap_lens, class_ids = make_batch(coco)
     return (torch.from_numpy(img), torch.from_numpy(captions).long(),
             torch.from_numpy(cap_lens).long(), torch.from_numpy(class_ids).long())
 
 
-def _port_step(trainer, run):
+def _port_step(trainer, run, coco=False):
     """One step of the port's trainer with the JAX run's dropout mask, and
     what it started from."""
     before = {k: v.clone() for k, v in trainer.image_encoder.state_dict().items()}
     text_before = [p.detach().clone() for p in trainer.text_params]
-    logs = trainer.train_step(*_port_batch(), keep_mask=torch.from_numpy(run["keep"]))
+    logs = trainer.train_step(*_port_batch(coco), keep_mask=torch.from_numpy(run["keep"]))
     return dict(trainer=trainer, logs=logs, before=before, text_before=text_before)
 
 
@@ -332,6 +342,47 @@ def _avg_pool_f64(x):
     s = jax.lax.reduce_window(x, 0.0, jax.lax.add, (1, 3, 3, 1), (1, 1, 1, 1),
                               ((0, 0), (1, 1), (1, 1), (0, 0)))
     return s / 9.0
+
+
+@pytest.fixture(scope="module")
+def coco_runs(jax_init):
+    """The DAMSM/coco structure (COCO) from ``jax_init``'s weights, which
+    no width of it changes: JAX's trainer and the port's, one step and the
+    eval logs each, on the COCO batch.  JAX traces its average pool in
+    float64 (as for the chunk cases): its float32 round trip moves the
+    image heads' gradients by ~4e-7, which on this batch puts one of
+    ``emb_cnn_code.bias``'s 32 entries (4.1e-4) past the 1e-3 agreement
+    of Adam's first update."""
+    models, _, state = jax_init
+    with jax.enable_x64(True), mock.patch.object(jax_inception, "avg_pool_3x3_s1_pad1",
+                                                 _avg_pool_f64):
+        cfg = jax_cfg_from_dict({**COCO, "JAX": {"DTYPE": "float64"}})
+        trainer = JaxTrainer(cfg, models, N_WORDS)
+        args = _jax_args(coco=True)
+        want = _jax_step(models, trainer, state, args, jax.random.PRNGKey(1))
+        want["eval_logs"] = jax.tree.map(np.asarray, trainer.eval_step(state, *args))
+    port = _port_trainer(want, raw=COCO)
+    eval_logs = port.eval_step(*_port_batch(coco=True))
+    return want, dict(_port_step(port, want, coco=True), eval_logs=eval_logs)
+
+
+@pytest.mark.parametrize("check", ["logs", "gradients", "stats_and_params"])
+def test_coco_step_matches_jax(coco_runs, check):
+    """One DAMSM/coco step (T 15, every image its own class, so no pair is
+    masked as the same class) against JAX at the bird step's tolerances:
+    train and eval logs, gradients, running statistics and updated
+    parameters."""
+    want, got = coco_runs
+    assert got["trainer"].cfg.TEXT.WORDS_NUM == COCO_T
+    if check == "logs":
+        for key in LOG_KEYS:
+            for logs in ("logs", "eval_logs"):
+                np.testing.assert_allclose(float(got[logs][key]), float(want[logs][key]),
+                                           rtol=2e-5, err_msg=f"{logs} {key}")
+    elif check == "gradients":
+        _check_gradients(want, got)
+    else:
+        _check_stats_and_params(want, got)
 
 
 CHUNKS = (2, 4)

@@ -14,8 +14,9 @@ import yaml
 
 from sba_gan_tpu_torch import main as gan_main
 from sba_gan_tpu_torch import pretrain
-from sba_gan_tpu_torch.config import cfg_from_file
+from sba_gan_tpu_torch.config import CONFIG_DIR, cfg_from_file
 from sba_gan_tpu_torch.data.pipeline import DataLoader, build_dataset
+from sba_gan_tpu_torch.train.gan import log_keys
 from sba_gan_tpu_torch.train.loop import GANTrainer
 from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -28,6 +29,17 @@ GAN_TINY = {"TREE": {"BRANCH_NUM": 2, "BASE_SIZE": 64},
             "TEXT": {"EMBEDDING_DIM": 32, "WORDS_NUM": 6},
             "MODEL": {"INCEPTION_INPUT": 75},
             "TRAIN": {"BATCH_SIZE": 8}}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs six
+    test processes on the CPU, and the many small ops here slow down by an
+    order of magnitude when every process spins eight threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -153,3 +165,66 @@ def test_device_time_leaves_out_annotated_ranges():
     host = SimpleNamespace(key="aten::mm", device_type=DeviceType.CPU,
                            is_user_annotation=False)
     assert device_events([kernel, adam, host]) == ([kernel], [adam])
+
+
+def _preset_yaml(name, path, **groups):
+    """The port's preset ``name`` with the keys of ``groups`` merged in, as
+    a YAML at ``path``."""
+    with open(os.path.join(CONFIG_DIR, f"{name}.yml")) as f:
+        raw = yaml.safe_load(f)
+    for group, keys in groups.items():
+        raw[group] = {**raw.get(group, {}), **keys} if isinstance(keys, dict) else keys
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
+
+
+def test_coco_presets_run_on_a_coco_tree(tmp_path):
+    """The three user paths of the COCO presets through the CLIs, on the
+    mini COCO tree of tests/test_torch_cub_data.py (no boxes, every image
+    its own class): ``pretrain`` with DAMSM/coco.yml,
+    ``main`` with coco_attn2.yml and that checkpoint as TRAIN.NET_E (an
+    epoch, then a resume), its EMA G written as a reference-layout
+    ``netG.pth``, and ``main`` with eval_coco.yml sampling the test split
+    from it.  The presets' own keys, at tiny widths (GF/DF 12/24,
+    EMBEDDING_DIM 32, Inception input 75, batch 4; R_NUM 3, WORDS_NUM
+    15 / 12 / 20, 5 captions an image, lambda 50 as published)."""
+    from test_torch_cub_data import _write_tree
+
+    root = _write_tree(tmp_path / "coco", np.random.default_rng(4), n_train=8, n_test=6,
+                       bbox=False)
+    tiny = dict(GAN={"GF_DIM": 12, "DF_DIM": 24, "Z_DIM": 8, "W_DIM": 16,
+                     "CONDITION_DIM": 8},
+                MODEL={"INCEPTION_INPUT": 75}, DATA_DIR=root)
+    text = {"EMBEDDING_DIM": 32}
+    damsm = _preset_yaml("DAMSM/coco", tmp_path / "damsm.yml", TEXT=text,
+                         TRAIN={"BATCH_SIZE": 4}, MODEL=tiny["MODEL"], DATA_DIR=root)
+    pre = pretrain.main(["--cfg", damsm, "--max_epoch", "1", "--device", "cpu",
+                         "--output_dir", str(tmp_path / "damsm")])
+    assert len(pre["epochs"][0]["logs"]) == 2 and np.isfinite(pre["epochs"][0]["val"])
+    model_dir = str(tmp_path / "damsm" / "Model")
+    gan = _preset_yaml("coco_attn2", tmp_path / "gan.yml", TEXT=text,
+                       TRAIN={"BATCH_SIZE": 4, "NET_E": model_dir}, **tiny)
+    argv = ["--cfg", gan, "--device", "cpu", "--output_dir", str(tmp_path / "gan")]
+    first = gan_main.main(argv + ["--max_epoch", "1"])
+    second = gan_main.main(argv + ["--max_epoch", "2"])
+    assert [first["resumed_from"], second["resumed_from"]] == [None, 0]
+    assert [e["steps"] for e in first["epochs"] + second["epochs"]] == [2, 2]
+    logs = second["epochs"][0]["logs"]
+    assert sorted(logs) == sorted(log_keys(3)) and all(np.isfinite(list(logs.values())))
+    saved = Checkpointer(str(tmp_path / "gan" / "Model")).restore()
+    assert saved["step"] == 4 and "h_net3.residual.2.block.1.weight" in saved["g_ema"]
+
+    net_g = {**saved["generator"], **saved["g_ema"]}
+    net_g = {k: v[:, :, None, None] if k.endswith("att.conv_context.weight") else v
+             for k, v in net_g.items()}
+    torch.save(net_g, tmp_path / "netG.pth")
+    torch.save(Checkpointer(model_dir).restore()["text_encoder"],
+               tmp_path / "text_encoder.pth")
+    ev = _preset_yaml("eval_coco", tmp_path / "eval.yml", TEXT=text, B_VALIDATION=True,
+                      TRAIN={"BATCH_SIZE": 4, "NET_G": str(tmp_path / "netG.pth"),
+                             "NET_E": str(tmp_path / "text_encoder.pth")}, **tiny)
+    out = gan_main.main(["--cfg", ev, "--device", "cpu", "--manualSeed", "1",
+                         "--output_dir", str(tmp_path / "eval")])
+    assert out["mode"] == "sampling"
+    assert sorted(os.listdir(out["samples_dir"])) == [
+        f"COCO_test_{i:06d}_s-1.png" for i in range(6)]

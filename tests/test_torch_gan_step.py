@@ -9,6 +9,9 @@ tests/test_torch_grad_accum.py).
 Setup: BRANCH_NUM 2 (64 and 128 images), batch 4, GF/DF 8, EMBEDDING 32,
 WORDS 6, Inception input 75, gammas 4/5/10, lambda 5, Adam lr 2e-4; JAX's
 ``z`` and ``eps`` are drawn as its step draws them and passed to the port.
+The COCO case (``coco_attn2.yml``'s structure: R_NUM 3, WORDS 12, lambda
+50, GF/DF 12/24, every image its own class) runs one step from the port's
+seeded weights and is held at the same tolerances.
 
 Precision: float64 on both sides (JAX under ``jax.enable_x64`` with
 ``JAX.DTYPE`` float64, the port's modules in double), as in
@@ -46,6 +49,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import jax_gan_state, rnn_encoder_key
 from sba_gan_tpu.config import cfg_from_dict as jax_cfg_from_dict
 from sba_gan_tpu.train.gan import build_models as jax_build_models
 from sba_gan_tpu.train.gan import init_gan_state as jax_init_gan_state
@@ -67,16 +71,41 @@ TINY = {"TREE": {"BRANCH_NUM": 2, "BASE_SIZE": 64},
                   "SMOOTH": {"GAMMA1": 4.0, "GAMMA2": 5.0, "GAMMA3": 10.0,
                              "LAMBDA": 5.0}}}
 NETS = ("G", "D0", "D1")
+# coco_attn2's structure at tiny widths: R_NUM 3, WORDS_NUM 12, lambda 50
+# (GF/DF 12/24 keep its 1:2 ratio); CAPTIONS_PER_IMAGE 5 is the reader's
+COCO_T = 12
+COCO = {"TREE": TINY["TREE"],
+        "GAN": {"GF_DIM": 12, "DF_DIM": 24, "Z_DIM": 8, "W_DIM": 16, "CONDITION_DIM": 8,
+                "R_NUM": 3},
+        "TEXT": {"EMBEDDING_DIM": 32, "WORDS_NUM": COCO_T, "CAPTIONS_PER_IMAGE": 5},
+        "MODEL": TINY["MODEL"],
+        "TRAIN": {**TINY["TRAIN"], "SMOOTH": {"GAMMA1": 4.0, "GAMMA2": 5.0, "GAMMA3": 10.0,
+                                              "LAMBDA": 50.0}}}
 
 
-def make_batch(branches=2):
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs six
+    test processes on the CPU, and the many small ops here slow down by an
+    order of magnitude when every process spins eight threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def make_batch(branches=2, coco=False):
+    """One batch of B: CUB-like (three classes, captions of up to T words)
+    or, with ``coco``, COCO-like (every image its own class, as the COCO
+    reader numbers them; captions of up to COCO_T words)."""
     rng = np.random.default_rng(5)
     imgs = [rng.uniform(-1, 1, (B, s, s, 3)) for s in (64, 128, 256)[:branches]]
-    cap_lens = np.array([T, 3, 1, 5], np.int32)
-    captions = np.zeros((B, T), np.int32)
+    t = COCO_T if coco else T
+    cap_lens = np.array([t, 7, 2, 5] if coco else [T, 3, 1, 5], np.int32)
+    captions = np.zeros((B, t), np.int32)
     for i, n in enumerate(cap_lens):
         captions[i, :n] = rng.integers(1, N_WORDS, n)
-    class_ids = np.array([0, 1, 0, 2], np.int32)
+    class_ids = np.arange(B, dtype=np.int32) if coco else np.array([0, 1, 0, 2], np.int32)
     return imgs, captions, cap_lens, class_ids
 
 
@@ -99,19 +128,20 @@ def _jax_moments(state, net):
     return W.d_net_state_dict(state.ds[int(net[1])].opt_state[0].mu, {})
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """The JAX step run twice: its states (as numpy), logs, noise draws and
-    per-step gradients (from the Adam first moments, mu_k = (mu_{k-1} + g_k) / 2)."""
-    imgs, captions, cap_lens, class_ids = make_batch()
+def _jax_steps(raw, batch, init_state, steps=STEPS):
+    """The JAX step of the config ``raw`` (float64) run ``steps`` times on
+    ``batch`` from ``init_state(cfg, models)``: its states (as port state
+    dicts), logs, noise draws and per-step gradients (from the Adam first
+    moments, mu_k = (mu_{k-1} + g_k) / 2)."""
+    imgs, captions, cap_lens, class_ids = batch
     with jax.enable_x64(True):
-        cfg = jax_cfg_from_dict({**TINY, "JAX": {"DTYPE": "float64"}})
+        cfg = jax_cfg_from_dict({**raw, "JAX": {"DTYPE": "float64"}})
         models = jax_build_models(cfg, N_WORDS)
-        states = [jax_init_gan_state(cfg, models, jax.random.PRNGKey(0))]
+        states = [init_state(cfg, models)]
         step = jax.jit(jax_make_step(cfg, models))
         key = jax.random.PRNGKey(3)
         logs, noise = [], []
-        for _ in range(STEPS):
+        for _ in range(steps):
             # the step's own draws: fold_in(rng, step), then z and the CA eps
             r = jax.random.fold_in(key, states[-1].step)
             r_z, r_ca = jax.random.split(r)
@@ -127,7 +157,7 @@ def jax_run():
         states = [jax.tree.map(np.asarray, s) for s in states]
     sds = [W.gan_state_from_jax(_jax_tree(s)) for s in states]
     grads = []
-    for k in range(1, STEPS + 1):
+    for k in range(1, steps + 1):
         per_net = {}
         for net in NETS:
             mu = _jax_moments(states[k], net)
@@ -140,11 +170,18 @@ def jax_run():
 
 
 @pytest.fixture(scope="module")
-def port_run(jax_run):
-    """The port's step from JAX's initial state, twice, with JAX's noise; per
-    step its logs, gradients and state (as float64 numpy)."""
-    imgs, captions, cap_lens, class_ids = make_batch()
-    cfg = cfg_from_dict(TINY)
+def jax_run():
+    """The JAX step run twice from a Flax init (:func:`_jax_steps`)."""
+    return _jax_steps(TINY, make_batch(),
+                      lambda cfg, models: jax_init_gan_state(cfg, models, jax.random.PRNGKey(0)))
+
+
+def _port_steps(raw, batch, jax_run):
+    """The port's step of ``raw`` from JAX's initial state, as many times
+    as JAX's, with JAX's noise; per step its logs, gradients and state (as
+    float64 numpy)."""
+    imgs, captions, cap_lens, class_ids = batch
+    cfg = cfg_from_dict(raw)
     models = build_models(cfg, N_WORDS)
     for m in (models.text_encoder, models.image_encoder, models.generator,
               *models.discriminators):
@@ -155,7 +192,7 @@ def port_run(jax_run):
     batch = ([torch.from_numpy(i) for i in imgs], torch.from_numpy(captions).long(),
              torch.from_numpy(cap_lens).long(), torch.from_numpy(class_ids).long())
     out = {"logs": [], "grads": [], "sds": [], "ema_prev": []}
-    for k in range(STEPS):
+    for k in range(len(jax_run["noise"])):
         z, eps = jax_run["noise"][k]
         out["ema_prev"].append({n: v.clone() for n, v in state.g_ema.items()})
         logs = step(*batch, z=torch.tensor(z, dtype=torch.float64),
@@ -170,8 +207,33 @@ def port_run(jax_run):
     return out
 
 
+@pytest.fixture(scope="module")
+def port_run(jax_run):
+    return _port_steps(TINY, make_batch(), jax_run)
+
+
+@pytest.fixture(scope="module")
+def coco_runs():
+    """(JAX's run, the port's run) of one step of the COCO structure; JAX's
+    state holds the port's seeded weights
+    (``_torch_parity.jax_gan_state``: no Flax init).  One step: a second
+    one runs both sides from parameters that Adam's first update moved
+    apart by up to 2 lr where the gradients' signs are rounding noise (see
+    the module docstring), and at this structure that moves the second
+    step's D1 running statistics by 3.0e-5 of their largest entry, past
+    the bound, at lambda 5 as at 50."""
+    models = build_models(cfg_from_dict(COCO), N_WORDS, seed=0)
+    want = _jax_steps(COCO, make_batch(coco=True), lambda cfg, jmodels: jax_gan_state(
+        cfg, jmodels, models, rnn_encoder_key), steps=1)
+    return want, _port_steps(COCO, make_batch(coco=True), want)
+
+
 @pytest.mark.parametrize("k", range(STEPS))
 def test_logs_match(jax_run, port_run, k):
+    _logs_match(jax_run, port_run, k)
+
+
+def _logs_match(jax_run, port_run, k):
     assert sorted(port_run["logs"][k]) == sorted(jax_run["logs"][k]) == sorted(log_keys(2))
     for key, want in jax_run["logs"][k].items():
         np.testing.assert_allclose(port_run["logs"][k][key], want, rtol=2e-5, err_msg=key)
@@ -179,6 +241,10 @@ def test_logs_match(jax_run, port_run, k):
 
 @pytest.mark.parametrize("net", NETS)
 def test_first_step_gradients_match(jax_run, port_run, net):
+    _first_step_gradients_match(jax_run, port_run, net)
+
+
+def _first_step_gradients_match(jax_run, port_run, net):
     want = jax_run["grads"][0][net]
     got = port_run["grads"][0][net]
     assert sorted(got) == sorted(want)
@@ -190,6 +256,10 @@ def test_first_step_gradients_match(jax_run, port_run, net):
 @pytest.mark.parametrize("k", range(STEPS))
 @pytest.mark.parametrize("net", NETS)
 def test_running_stats_match(jax_run, port_run, net, k):
+    _running_stats_match(jax_run, port_run, net, k)
+
+
+def _running_stats_match(jax_run, port_run, net, k):
     want = _net_tensors(jax_run["sds"][k + 1], net)
     got = _net_tensors(port_run["sds"][k], net)
     names = [n for n in want if n.endswith(("running_mean", "running_var"))]
@@ -216,6 +286,10 @@ def _agreement(jax_run, port_run, net, upto):
 @pytest.mark.parametrize("k", range(STEPS))
 @pytest.mark.parametrize("net", NETS)
 def test_parameters_match(jax_run, port_run, net, k):
+    _parameters_match(jax_run, port_run, net, k)
+
+
+def _parameters_match(jax_run, port_run, net, k):
     want = _net_tensors(jax_run["sds"][k + 1], net)
     got = _net_tensors(port_run["sds"][k], net)
     agree = _agreement(jax_run, port_run, net, k + 1)
@@ -231,6 +305,10 @@ def test_parameters_match(jax_run, port_run, net, k):
 
 @pytest.mark.parametrize("k", range(STEPS))
 def test_ema_matches(jax_run, port_run, k):
+    _ema_matches(jax_run, port_run, k)
+
+
+def _ema_matches(jax_run, port_run, k):
     want = jax_run["sds"][k + 1]["g_ema"]
     got = port_run["sds"][k]["g_ema"]
     params = port_run["sds"][k]["generator"]
@@ -241,6 +319,23 @@ def test_ema_matches(jax_run, port_run, k):
         torch.testing.assert_close(got[name], own, rtol=0, atol=1e-12)
         diff = np.abs(got[name].double().numpy() - w.double().numpy()).max()
         assert diff <= 1e-3 * (k + 1) * 2 * LR + 2e-7, name
+
+
+@pytest.mark.parametrize("check", ["logs", "running_stats", "parameters", "ema"])
+def test_coco_step_matches_jax(coco_runs, check):
+    """The COCO structure (COCO above) at the bird case's tolerances: the
+    step's logs, running statistics, parameters and EMA, per network."""
+    if check in ("logs", "ema"):
+        {"logs": _logs_match, "ema": _ema_matches}[check](*coco_runs, 0)
+        return
+    for net in NETS:
+        {"running_stats": _running_stats_match,
+         "parameters": _parameters_match}[check](*coco_runs, net, 0)
+
+
+@pytest.mark.parametrize("net", NETS)
+def test_coco_first_step_gradients_match(coco_runs, net):
+    _first_step_gradients_match(*coco_runs, net)
 
 
 # ---------------------------------------------------------------- port only

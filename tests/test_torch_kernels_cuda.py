@@ -101,6 +101,43 @@ def test_word_attention_edges(cuda, b, t, d, tiles, extra, lens):
         torch.testing.assert_close(row, torch.full_like(row, 1.0 / t), **TOL)
 
 
+COCO_LENS = [12, 11, 9, 7, 5, 3, 2, 1, 0, 12, 6, 4, 8, 10]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_word_attention_generic_instance_at_coco_width(cuda, dtype):
+    """The generic-D instance at coco_attn2's word-attention width (GF_DIM
+    48): its step's batch 14, WORDS_NUM 12, QL 64^2 and a ragged 17 rows,
+    an all-padding row; at the tolerances of the D 32 cases.  Scores of
+    unit variance, as in test_word_attention_edges: the pad bias -1e9 is
+    exact in float32 but its neighbours lie 64 apart, so an all-padding row
+    is uniform only while every score stays within 32 of 0 (with unit
+    queries at D 48, whose scores have a deviation of ~7, a few of 49,356
+    entries were not, in the kernel and the plain version alike)."""
+    q32, s32, pad = _inputs(cuda, 14, 64 * 64 + 17, 12, 48, COCO_LENS, seed=48)
+    q32 = q32 * 48 ** -0.5
+    q, s = q32.to(dtype), s32.to(dtype)
+    before = (wa.word_attention.launches, wa.word_attention.bf16_launches)
+    ctx, att = wa.word_attention(q, s, pad)
+    torch.cuda.synchronize()
+    bf16 = dtype == BF16
+    assert (wa.word_attention.launches, wa.word_attention.bf16_launches) == (
+        before[0] + 1, before[1] + bf16)
+    bias = wa.pad_bias(pad, s)
+    ctx_p, att_p = wa.word_attention_plain(q, s, bias)
+    torch.testing.assert_close(att, att_p, **TOL)
+    row = att[COCO_LENS.index(0)]  # uniform over all T, not NaN
+    torch.testing.assert_close(row, torch.full_like(row, 1.0 / 12), **TOL)
+    if not bf16:
+        torch.testing.assert_close(ctx, ctx_p, **TOL)
+        return
+    ctx_f, _ = wa.word_attention_plain(q32, s32, bias)
+    torch.testing.assert_close(ctx, ctx_p, rtol=1e-5,
+                               atol=2.0 ** -8 * s.float().abs().max().item() + 1e-5)
+    assert 10 * _gap(ctx, ctx_p) <= _gap(ctx_p, ctx_f)
+
+
 @pytest.mark.cuda
 def test_word_attention_refuses_what_it_does_not_take(cuda):
     q, s, pad = _inputs(cuda, 2, 64, 5, 8, [5, 2])

@@ -54,6 +54,17 @@ EXAMPLES = {"first": ["a small bird with red wings", "grey belly and a short bea
                        "a bird unknownword"]}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs six
+    test processes on the CPU, and the many small ops here slow down by an
+    order of magnitude when every process spins eight threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _write_reference_files(cfg, root, seed, n_words):
     """(netG.pth, text_encoder.pth) in the reference layout: random weights
     of the port's models (cheaper than a Flax init), the word projection as
@@ -141,20 +152,29 @@ def _capture(monkeypatch, module, root):
     return seen
 
 
-def _run_both(tmp_path, monkeypatch, mixing, extra):
-    """Writes a mini CUB tree and the reference files, runs the port's
-    ``main`` on the tree and returns (port images, JAX images to come, port
-    summary, the JAX trainer, JAX config)."""
-    root = _write_tree(tmp_path / "birds", np.random.default_rng(2), n_train=2, n_test=10)
+def _run_both(tmp_path, monkeypatch, mixing, extra, coco=False):
+    """Writes a mini CUB tree (or, with ``coco``, a mini COCO tree read at
+    eval_coco.yml's structure: R_NUM 3, WORDS_NUM 20, 5 captions an image,
+    GF_DIM 12) and the reference files, runs the port's ``main`` on the
+    tree and returns (port images, JAX images to come, port summary, the
+    JAX trainer, JAX config)."""
+    root = _write_tree(tmp_path / ("coco" if coco else "birds"), np.random.default_rng(2),
+                       n_train=2, n_test=10, bbox=not coco)
     d = {"TREE": {"BRANCH_NUM": 3 if mixing else 2}, "GAN": dict(TINY["GAN"]),
          "TEXT": dict(TINY["TEXT"]), "TRAIN": {"FLAG": False, "BATCH_SIZE": 4,
                                                 "MIXING": mixing},
          "WORKERS": 2, "MODEL": {"INCEPTION_INPUT": 75}, "DATA_DIR": root, **extra}
+    if coco:
+        d["GAN"].update(GF_DIM=12, R_NUM=3)
+        d["TEXT"].update(WORDS_NUM=20, CAPTIONS_PER_IMAGE=5)
+        d.update(DATASET_NAME="coco")
     if mixing:
         d["GAN"].update(INIT_Z_CONCAT=False, M_NUM=8)
     cfg, jcfg = cfg_from_dict(d), jax_cfg_from_dict(d)
     jcfg.JAX.SEED = SEED
-    n_words = TextImageDataset(root, split="test").n_words  # writes the caption cache
+    # writes the caption cache
+    n_words = TextImageDataset(root, split="test", captions_per_image=cfg.TEXT.CAPTIONS_PER_IMAGE
+                               ).n_words
     net_g, net_e = _write_reference_files(cfg, str(tmp_path), 3, n_words)
     yml = tmp_path / "eval.yml"
     yml.write_text(yaml.safe_dump({**d, "TRAIN": {**d["TRAIN"], "NET_G": net_g,
@@ -195,6 +215,22 @@ def test_sampling_from_reference_netg_matches_jax(tmp_path, monkeypatch):
     assert sorted(os.listdir(summary["samples_dir"])) == sorted(
         os.path.basename(k) for k in jax_seen)
     assert "valid/single/001.Species_test_9_s-1.png" in port_seen
+    _assert_same_images(port_seen, jax_seen)
+
+
+def test_coco_sampling_from_reference_netg_matches_jax(tmp_path, monkeypatch):
+    """eval_coco.yml's structure (R_NUM 3: the reference ``residual.{0,1,2}``
+    keys of ``netG.pth``, each held to ``port_g_net``'s; WORDS_NUM 20; 5
+    captions an image) on a mini COCO tree (no boxes, every image its own
+    class); the tolerance above."""
+    port_seen, jax_seen, summary, jt, jcfg = _run_both(
+        tmp_path, monkeypatch, False, {"B_VALIDATION": True}, coco=True)
+    assert summary["mode"] == "sampling" and jt.dataset.bbox is None
+    assert (jcfg.GAN.R_NUM, jcfg.TEXT.WORDS_NUM) == (3, 20)
+    assert "h_net2.residual.2.block.1.weight" in torch.load(
+        tmp_path / "netG.pth", weights_only=True)
+    jt.sampling("valid")
+    assert len(port_seen) == 10 and "valid/single/COCO_test_000009_s-1.png" in port_seen
     _assert_same_images(port_seen, jax_seen)
 
 
