@@ -173,11 +173,13 @@ and nothing of JAX.  Phases, each printing one line or more:
    SLICE_ATOL); ``pretrain_step_coco``, step 7 at DAMSM/coco's batch 48 and
    T 15 (PRETRAIN_TOL; K1, K2, K3 once each); ``gan_step_coco``, step 9
    with coco_attn2 at batch 8 and WORDS_NUM 12 (the gan_step bounds); K4's
-   generic-D instance at D 48 in kernel rows (B 14, QL 64^2 and 128^2, T
-   12, float32 and bfloat16; B 100 QL 64^2 T 20; B 1 QL 128^2 T 20) and
-   K1-K3 at B 48 T 15; ``gan_bench_coco``, ``bench.measure`` with the
-   coco_attn2 keys at batch 14 and 128 (or the largest that fits) in
-   float32 and bfloat16, beside step 10's bird_style lines;
+   D 48 instance in kernel rows (B 14 and 128, QL 64^2 and 128^2, T 12,
+   float32 and bfloat16; B 100 QL 64^2 T 20; B 1 QL 128^2 T 20; each with
+   an all-padding row, and failing unless the launch took the D 48
+   instance) and K1-K3 at B 48 T 15; ``gan_bench_coco``,
+   ``bench.measure`` with the coco_attn2 keys at batch 14 and 128 (or the
+   largest that fits) in float32 and bfloat16, beside step 10's
+   bird_style lines;
 22. the ``kernels`` JSON line (with each kernel's launches in the GAN step,
    K4's also in the evaluation phases, each kernel's on the BERT paths
    under ``bert_paths``, on the data-parallel paths under ``dist_paths``,
@@ -350,7 +352,31 @@ def phase_build():
     say("build", seconds=round(seconds, 3), kernels=sorted(logs))
 
 
-def word_attention_case(b, ql, t, d, lens, seed, reps=None):
+def padding_row_err(q, s, pad) -> float:
+    """K4 at a row's shape and inputs with caption 0 made all padding and its
+    queries scaled by D^-0.5: every score of that row then stays within 32
+    of 0, where the pad bias -1e9's float32 neighbours lie 64 apart, so its
+    P must be uniform over all T words (KERNEL_TOL), and the rest match
+    plain.  Returns that row's largest distance from 1/T."""
+    from sba_gan_tpu_torch.ops import word_attention as wa
+
+    t = s.shape[1]
+    q1, pad1 = q.clone(), pad.clone()
+    q1[0] *= q.shape[2] ** -0.5
+    pad1[0] = True
+    _, att = wa.word_attention(q1, s, pad1)
+    torch.cuda.synchronize()
+    _, att_p = wa.word_attention_plain(q1, s, wa.pad_bias(pad1, s))
+    torch.testing.assert_close(att, att_p, **KERNEL_TOL)
+    torch.testing.assert_close(att[0], torch.full_like(att[0], 1.0 / t), **KERNEL_TOL)
+    return (att[0] - 1.0 / t).abs().max().item()
+
+
+def word_attention_case(b, ql, t, d, lens, seed, reps=None, padding_row=False):
+    """K4 against its plain version at one shape, timed beside the plain
+    version and the library's three calls; ``instance``: the kernel
+    instance the launch took (:func:`padding_row_err` too, with
+    ``padding_row``)."""
     from sba_gan_tpu_torch.ops import word_attention as wa
 
     gen = torch.Generator().manual_seed(seed)
@@ -381,8 +407,11 @@ def word_attention_case(b, ql, t, d, lens, seed, reps=None):
     kernel = lambda: wa.word_attention(q, s, pad)  # noqa: E731
     plain = lambda: wa.word_attention_plain(q, s, bias)  # noqa: E731
     reps = reps or {}
+    extra = {"padding_row_err": padding_row_err(q, s, pad)} if padding_row else {}
     return {
         "shape": f"B{b} QL{ql} T{t} D{d}",
+        "instance": wa.instance(d, q.data_ptr() % 16 == 0),
+        **extra,
         "max_abs_err": err,
         "kernel_ms": device_ms(kernel, **reps),
         "plain_ms": device_ms(plain, **reps),
@@ -2014,7 +2043,8 @@ def _gap(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def word_attention_bf16_case(b, ql, t, d, lens, seed, reps=None, case=None):
+def word_attention_bf16_case(b, ql, t, d, lens, seed, reps=None, case=None,
+                             padding_row=False):
     """K4's bfloat16 instantiation (bfloat16 query and source) against its
     plain bfloat16 version on the same inputs, with the plain float32 result
     of the unrounded inputs beside it (the bfloat16 gap).  Both sides round
@@ -2039,8 +2069,11 @@ def word_attention_bf16_case(b, ql, t, d, lens, seed, reps=None, case=None):
     err = {"ctx": _gap(ctx, ctx_p), "att": _gap(att, att_p)}
     gap = {"ctx": _gap(ctx_p, ctx_f), "att": _gap(att_p, att_f)}
     row = {"shape": f"B{b} QL{ql} T{t} D{d}", "dtype": "bfloat16",
+           "instance": wa.instance(d, q.data_ptr() % 16 == 0),
            "max_abs_err": max(err.values()), "max_abs_err_by_output": err,
            "plain_bf16_vs_plain_f32": gap, "ctx_tol": ctx_tol}
+    if padding_row:
+        row["padding_row_err"] = padding_row_err(q, s, pad)
 
     def check():
         torch.testing.assert_close(ctx, ctx_p, **ctx_tol)
@@ -3630,7 +3663,7 @@ def phase_gan_bench_dcgan(style_lines):
 
 # ---------------------------------------------------------------------------
 # AttnGAN2 on COCO (configs/coco_attn2.yml, eval_coco.yml, DAMSM/coco.yml) at
-# its published widths: GF_DIM 48 (K4's generic-D instance at D 48), DF_DIM
+# its published widths: GF_DIM 48 (K4's D 48 instance), DF_DIM
 # 96, R_NUM 3, WORDS_NUM 12 / 20 / 15, lambda 50, 5 captions an image
 # ---------------------------------------------------------------------------
 COCO_CFG = os.path.join(CONFIGS, "coco_attn2.yml")
@@ -3655,27 +3688,36 @@ def _caption_lens(b, t, seed, shortest=2):
 
 
 def phase_kernels_coco():
-    """K4's generic-D instance at COCO's D 48 against its plain version: at
-    the coco_attn2 step's shapes (B 14, QL 64^2 and 128^2, T 12, captions of
-    2 to 12 words) in float32 and bfloat16, at eval_coco's batch (B 100, QL
-    64^2, T 20) and at one generation (B 1, QL 128^2, T 20) in float32, with
-    the library's three calls beside; then K1-K3 at DAMSM/coco's pretrain
-    shape (B 48, T 15, R 289, D 256).  The tolerances of the D 32 and B 32
-    rows."""
+    """K4's D 48 instance at COCO's D 48 against its plain version: at the
+    coco_attn2 step's shapes (B 14, the preset's batch, and B 128, the
+    bench's; QL 64^2 and 128^2, T 12, captions of 2 to 12 words) in float32
+    and bfloat16, at eval_coco's batch (B 100, QL 64^2, T 20) and at one
+    generation (B 1, QL 128^2, T 20) in float32, with the library's three
+    calls beside, each with an all-padding row (:func:`padding_row_err`)
+    and the instance it took, which must be the D 48 one; then K1-K3 at
+    DAMSM/coco's pretrain shape (B 48, T 15, R 289, D 256).  The tolerances
+    of the D 32 and B 32 rows."""
     reps = dict(calls=5, replays=4)
     rows = {}
-    lens = _caption_lens(14, 12, SEED + 14)
-    for k, ql in enumerate((64 * 64, 128 * 128)):
-        row = word_attention_case(14, ql, 12, COCO_D, lens, seed=150 + k, reps=reps)
-        say("kernel", name="word_attention", case="coco_step", **row)
-        rows[f"coco_step_ql{ql}"] = row
-        rows[f"coco_step_ql{ql}_bf16"] = word_attention_bf16_case(
-            14, ql, 12, COCO_D, lens, seed=150 + k, reps=reps, case="coco_step")
+    for b, seed, prefix in ((14, 150, "coco_step"), (128, 170, "coco_step_b128")):
+        lens = _caption_lens(b, 12, SEED + b)
+        for k, ql in enumerate((64 * 64, 128 * 128)):
+            row = word_attention_case(b, ql, 12, COCO_D, lens, seed=seed + k, reps=reps,
+                                      padding_row=True)
+            say("kernel", name="word_attention", case="coco_step", **row)
+            rows[f"{prefix}_ql{ql}"] = row
+            rows[f"{prefix}_ql{ql}_bf16"] = word_attention_bf16_case(
+                b, ql, 12, COCO_D, lens, seed=seed + k, reps=reps, case="coco_step",
+                padding_row=True)
     for label, b, ql, lens in (("coco_sampling", 100, 64 * 64, _caption_lens(100, 20, SEED)),
                                ("coco_generation", 1, 128 * 128, [13])):
-        row = word_attention_case(b, ql, 20, COCO_D, lens, seed=152 + b, reps=reps)
+        row = word_attention_case(b, ql, 20, COCO_D, lens, seed=152 + b, reps=reps,
+                                  padding_row=True)
         say("kernel", name="word_attention", case=label, **row)
         rows[label] = row
+    others = {label: r["instance"] for label, r in rows.items() if r["instance"] != COCO_D}
+    if others:
+        raise AssertionError(f"K4 at D 48 took another instance than its D 48 one: {others}")
     damsm = damsm_case(COCO_PRETRAIN_BATCH, 15, seed=160)
     for name, row in damsm.items():
         say("kernel", name=name, case="coco_pretrain", **row)
@@ -3980,8 +4022,8 @@ def main() -> int:
     # K1-K3 at the pretrain shape, with the GAN step's shapes beside; then
     # each in bfloat16, its launches those of the bfloat16 paths (the GAN
     # step; K3 the pretrain step's; K4 the generation's beside)
-    gan_keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "eager_ms", "max_abs_err")
+    gan_keys = ("shape", "instance", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "eager_ms", "max_abs_err")
     main_row = next(r for r in rows if r["shape"] == "B1 QL16384 T25 D32")
     kernels = [{
         "name": "word_attention",
@@ -4007,7 +4049,8 @@ def main() -> int:
         "dist_paths": dist_paths["word_attention"],
         "dcgan_paths": dcgan_paths["word_attention"],
         "coco_paths": coco_paths["word_attention"],
-        "coco": {label: {k: r[k] for k in gan_keys} for label, r in coco_rows.items()},
+        "coco": {label: {k: r[k] for k in gan_keys + ("padding_row_err",)}
+                 for label, r in coco_rows.items()},
     }]
     for kname, (source, replaces) in DAMSM_KERNELS.items():
         row, gan = damsm_rows["pretrain"][kname], damsm_rows["gan_step"][kname]

@@ -138,7 +138,10 @@ def device_events(events) -> Tuple[list, list]:
     return [e for e in device if e not in ranges], ranges
 
 
-KERNEL_NAMES = {"word_attention": "word_attention_fwd_kernel",
+# a part of each kernel's name on the device's timeline; "word_attention_fwd"
+# begins the name of every K4 instance (word_attention_fwd_kernel for D 32
+# and the generic one, word_attention_fwd_wide_kernel for D 48)
+KERNEL_NAMES = {"word_attention": "word_attention_fwd",
                 "damsm_sim_fwd": "damsm_sim_fwd_kernel",
                 "damsm_sim_dimg": "damsm_sim_dimg_kernel",
                 "damsm_sim_dwords": "damsm_dwords_kernel"}

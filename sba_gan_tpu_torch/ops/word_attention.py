@@ -88,6 +88,17 @@ def tile_rows() -> int:
     return _library().word_attention_tile_rows()
 
 
+def instance(d: int, aligned: bool = True) -> int:
+    """The compile-time D of the kernel instance that a launch at width ``d``
+    takes (32 or 48), or 0 for the generic instance, which takes any other
+    D; ``aligned``: query and ctx start on 16 bytes, which the compile-time
+    instances need (builds the kernel; needs the toolkit)."""
+    fn = _library().word_attention_instance
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(d, int(aligned))
+
+
 def _check(query, source, pad_mask):
     if query.dim() != 3 or source.dim() != 3 or (
             pad_mask is not None and pad_mask.dim() != 2):

@@ -1,6 +1,7 @@
 """Time design variants of the port's redesigned kernels in one process.
 
     python3 scripts/torch_kernel_variants.py [--out build/variants.json]
+        [--only k4|damsm] [--k4_base OLD_word_attention.cu]
 
 Needs a CUDA card and ``nvcc``.  A variant is a copy of a kernel's source
 and of the headers of ``csrc/`` with some of their constants or lines
@@ -13,9 +14,18 @@ timed as ``chip_smoke.py`` does (device ms of calls captured in a CUDA
 graph):
 
 * K4, word attention (``csrc/word_attention.cu``): query rows per block
-  (``kRows``) and warps per block (``kWarps``), at ``chip_smoke.py``'s six
-  shapes, beside the plain version and the library yardstick (three calls:
-  ``baddbmm``, ``softmax``, ``bmm``);
+  (``kRows``) and warps per block (``kWarps``); for the D 48 instance the
+  query rows per block on a tall grid (``kTallTile``), the blocks an SM
+  must fit (``kWideBlocks``) and 32 word slots at every T (no two rows a
+  warp side by side at T <= 16); and, with ``--k4_base``, an
+  earlier source of the kernel as it is (for example the parent commit's,
+  ``git show <commit>:sba_gan_tpu_torch/ops/csrc/word_attention.cu``),
+  timed in turns with the current one (base, current, ..., current,
+  base).  At ``chip_smoke.py``'s shapes: D 32 at the serving shapes (T 25)
+  and the GAN step's (B 128, T 18, float32 and bfloat16), D 48 at the
+  COCO ones (B 14 and 128 at T 12, float32 and bfloat16; B 100 QL 64^2
+  and B 1 QL 128^2 at T 20), beside the plain version and the library
+  yardstick (three calls: ``baddbmm``, ``softmax``, ``bmm``);
 * K1 and K2, the DAMSM similarity and its image gradient
   (``csrc/damsm_sim.cu``): texts per block (``kMaxTexts`` 1 or 2) and the
   products in 3xTF32 or in plain TF32 (one MMA a product); for K2 also
@@ -67,8 +77,16 @@ PLAIN_TF32 = [
      'asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi[e]) : "f"(v[e])); lo[e] = 0u;'),
     (r"mma_tf32\([^;]*\.lo[^;]*\)", "(void)0"),
 ]
+K4_CURRENT = "rows32 warps4"  # the source as it is
 K4_VARIANTS = {f"rows{rows} warps{warps}": [_const("kRows", rows), _const("kWarps", warps)]
-               for rows, warps in ((16, 4), (32, 4), (32, 8), (64, 4), (64, 8))}
+               for rows, warps in ((16, 4), (32, 4), (64, 4))}
+K4_VARIANTS.update({
+    "wide tall32": [_const("kTallTile", 32)],
+    "wide tall64": [_const("kTallTile", 64)],
+    "wide blocks5": [_const("kWideBlocks", 5)],  # 96 registers: spills
+    "wide slots32": [(r"return t_len <= 16", "return false")],
+})
+K4_BASE = "base"  # --k4_base: an earlier source, built as it is
 SIM_VARIANTS = {
     "texts2": [],
     "texts1": [_const("kMaxTexts", 1)],
@@ -89,8 +107,22 @@ K3_VARIANTS = {
     "texts2 warps16 plain-tf32": PLAIN_TF32,
 }
 K2_SPLITS = (1, 2, 4, 8)
-K4_SHAPES = [(b, ql, lens) for b, lens in ((1, [11]), (6, [25, 18, 9, 3, 1, 0]))
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def k4_shapes(chip_smoke):
+    """(B, QL, T, D, lengths, dtype) of ``chip_smoke.py``'s K4 rows."""
+    lens = chip_smoke._caption_lens
+    return ([(b, ql, 25, 32, ln, F32) for b, ln in ((1, [11]), (6, [25, 18, 9, 3, 1, 0]))
              for ql in (64 * 64, 128 * 128, 4133)]
+            + [(128, ql, 18, 32, lens(128, 18, 5, shortest=4), dt) for dt in (F32, BF16)
+               for ql in (64 * 64, 128 * 128)]
+            + [(b, ql, 12, 48, lens(b, 12, b), dt) for b in (14, 128) for dt in (F32, BF16)
+               for ql in (64 * 64, 128 * 128)]
+            + [(100, 64 * 64, 20, 48, lens(100, 20, 0), F32),
+               (1, 128 * 128, 20, 48, [13], F32)])
+
+
 DAMSM_SHAPES = [(32, 20), (128, 18)]
 
 
@@ -109,12 +141,16 @@ def _sources(name: str, patches):
     return files
 
 
-def _build_variant(name: str, tag: str, patches):
+def _build_variant(name: str, tag: str, patches, source=None):
     """Compile the variant in a directory of its own (the source includes
-    its patched headers from there); returns (library path, nvcc log)."""
+    its patched headers from there); ``source``: the kernel's text to take
+    instead of the current one's.  Returns (library path, nvcc log)."""
     vdir = os.path.join(VARIANT_DIR, f"{name}-{tag.replace(' ', '_')}")
     os.makedirs(vdir, exist_ok=True)
-    for fname, text in _sources(name, patches).items():
+    files = _sources(name, patches)
+    if source is not None:
+        files[_build.SOURCES[name]] = source
+    for fname, text in files.items():
         with open(os.path.join(vdir, fname), "w") as f:
             f.write(text)
     lib = os.path.join(vdir, f"lib{name}.so")
@@ -132,39 +168,58 @@ def _routed(name: str, lib):
     return mock.patch.object(_build, "load", lambda n: lib if n == name else load(n))
 
 
-def _ptxas(log: str):
-    return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-
-
 def k4_rows(chip_smoke, libs):
+    """Every K4 variant at every shape; with a base, base and current twice,
+    in turns around the other variants."""
     from sba_gan_tpu_torch.ops import word_attention as wa
 
+    tags = [tag for name, tag in libs if name == "word_attention"]
+    order = [t for t in tags if t not in (K4_BASE, K4_CURRENT)]
+    order = ([K4_BASE, K4_CURRENT] + order + [K4_CURRENT, K4_BASE] if K4_BASE in tags
+             else [K4_CURRENT] + order)
     rows = []
-    t, d = 25, 32
-    for b, ql, lens in K4_SHAPES:
-        gen = torch.Generator().manual_seed(ql + b)
-        q = torch.randn((b, ql, d), generator=gen).cuda()
-        s = torch.randn((b, t, d), generator=gen).cuda()
+
+    def add(row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    for b, ql, t, d, lens, dtype in k4_shapes(chip_smoke):
+        gen = torch.Generator().manual_seed(ql + b + d)
+        q = torch.randn((b, ql, d), generator=gen).cuda().to(dtype)
+        s = torch.randn((b, t, d), generator=gen).cuda().to(dtype)
         pad = (torch.arange(t)[None, :] >= torch.tensor(lens)[:, None]).cuda()
         bias = wa.pad_bias(pad, s)
         ctx_p, att_p = wa.word_attention_plain(q, s, bias)
+        bias_in = bias.to(dtype)[:, None, :]
 
         def library():  # three calls: no single PyTorch call returns both ctx and P
-            p = torch.softmax(torch.baddbmm(bias[:, None, :], q, s.transpose(1, 2)), -1)
-            return torch.bmm(p, s)
+            p = torch.softmax(torch.baddbmm(bias_in, q, s.transpose(1, 2)).float(), -1)
+            return torch.bmm(p.to(dtype), s)
 
-        base = {"kernel": "word_attention", "shape": f"B{b} QL{ql} T{t} D{d}"}
-        rows.append({**base, "variant": "plain",
-                     "ms": chip_smoke.device_ms(lambda: wa.word_attention_plain(q, s, bias))})
-        rows.append({**base, "variant": "library", "ms": chip_smoke.device_ms(library)})
-        for tag in K4_VARIANTS:
-            with _routed("word_attention", libs["word_attention", tag]):
-                ctx, att = wa.word_attention(q, s, pad)
+        reps = dict(calls=5, replays=4) if b * ql >= 128 * 4096 else {}
+        base = {"kernel": "word_attention", "shape": f"B{b} QL{ql} T{t} D{d}",
+                "dtype": str(dtype).replace("torch.", "")}
+        add({**base, "variant": "plain", "ms": chip_smoke.device_ms(
+            lambda: wa.word_attention_plain(q, s, bias), **reps)})
+        add({**base, "variant": "library", "ms": chip_smoke.device_ms(library, **reps)})
+        for turn, tag in enumerate(order):
+            lib = libs["word_attention", tag]
+            inst = (lib.word_attention_instance(d, 1)
+                    if hasattr(lib, "word_attention_instance") else None)
+            row = {**base, "variant": tag, "turn": turn, "instance": inst}
+            with _routed("word_attention", lib):
+                try:
+                    ctx, att = wa.word_attention(q, s, pad)
+                except RuntimeError as e:  # a variant the launch refuses (shared memory)
+                    add({**row, "error": str(e)})
+                    continue
                 torch.cuda.synchronize()
                 err = max((ctx - ctx_p).abs().max().item(),
                           (att - att_p).abs().max().item())
-                rows.append({**base, "variant": tag, "max_abs_err": err, "ms":
-                             chip_smoke.device_ms(lambda: wa.word_attention(q, s, pad))})
+                add({**row, "max_abs_err": err, "ms": chip_smoke.device_ms(
+                    lambda: wa.word_attention(q, s, pad), **reps)})
+        del q, s, pad, bias, ctx_p, att_p, bias_in
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -237,6 +292,10 @@ def damsm_rows(chip_smoke, libs):
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--out", default=os.path.join(ROOT, "build", "variants.json"))
+    p.add_argument("--only", choices=("k4", "damsm"), default=None,
+                   help="time only K4's variants or only K1-K3's")
+    p.add_argument("--k4_base", default=None,
+                   help="an earlier word_attention.cu to time beside the current one")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -247,17 +306,29 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     os.makedirs(VARIANT_DIR, exist_ok=True)
-    jobs = ([("word_attention", tag, v) for tag, v in K4_VARIANTS.items()]
-            + [("damsm_sim", tag, v) for tag, v in {**SIM_VARIANTS, **K2_VARIANTS}.items()]
-            + [("damsm_dwords", tag, v) for tag, v in K3_VARIANTS.items()])
+    jobs = []
+    if args.only != "damsm":
+        jobs += [("word_attention", tag, v, None) for tag, v in K4_VARIANTS.items()]
+        if args.k4_base:
+            with open(args.k4_base) as f:
+                jobs.append(("word_attention", K4_BASE, [], f.read()))
+    if args.only != "k4":
+        jobs += ([("damsm_sim", tag, v, None)
+                  for tag, v in {**SIM_VARIANTS, **K2_VARIANTS}.items()]
+                 + [("damsm_dwords", tag, v, None) for tag, v in K3_VARIANTS.items()])
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(lambda job: _build_variant(*job), jobs))
-    libs = {(name, tag): ctypes.CDLL(path) for (name, tag, _), (path, _) in zip(jobs, built)}
-    rows = [{"build": name, "variant": tag, "ptxas": _ptxas(log)}
-            for (name, tag, _), (_, log) in zip(jobs, built)]
-    rows += k4_rows(chip_smoke, libs) + damsm_rows(chip_smoke, libs)
+    libs = {(name, tag): ctypes.CDLL(path) for (name, tag, *_), (path, _) in zip(jobs, built)}
+    rows = [{"build": name, "variant": tag, "ptxas": chip_smoke.ptxas_by_function(log)}
+            for (name, tag, *_), (_, log) in zip(jobs, built)]
     for row in rows:
         print(json.dumps(row), flush=True)
+    if args.only != "damsm":
+        rows += k4_rows(chip_smoke, libs)
+    if args.only != "k4":
+        for row in damsm_rows(chip_smoke, libs):
+            print(json.dumps(row), flush=True)
+            rows.append(row)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),

@@ -126,6 +126,7 @@ ATTN_CASES = {  # B, QL, T, D, lengths (None = no mask)
     "ragged": (3, 512, 7, 16, [7, 3, 5]),
     "all_padding_row": (2, 512, 6, 8, [4, 0]),
     "no_mask": (2, 512, 5, 32, None),
+    "coco_width": (2, 512, 12, 48, [12, 3]),  # D 48, WORDS_NUM 12: COCO's
 }
 
 

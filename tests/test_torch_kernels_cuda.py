@@ -23,8 +23,9 @@ with ``mm_dtype`` bfloat16 within the bounds of ``chip_smoke.py``'s
 gradients); each at least ten times closer
 to the plain bfloat16 result than that is to the plain float32 one.
 
-Beside the kernels, one check of the profiler on the card: the optimizer's
-annotated range is told apart from the kernels it encloses.
+Beside the kernels, two checks of the profiler on the card: the
+optimizer's annotated range is told apart from the kernels it encloses,
+and the bench's name for K4 finds every instance of it.
 """
 
 import pytest
@@ -107,9 +108,10 @@ COCO_LENS = [12, 11, 9, 7, 5, 3, 2, 1, 0, 12, 6, 4, 8, 10]
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_word_attention_generic_instance_at_coco_width(cuda, dtype):
-    """The generic-D instance at coco_attn2's word-attention width (GF_DIM
-    48): its step's batch 14, WORDS_NUM 12, QL 64^2 and a ragged 17 rows,
-    an all-padding row; at the tolerances of the D 32 cases.  Scores of
+    """K4 at coco_attn2's word-attention width (GF_DIM 48), which takes the
+    D 48 instance (the generic one before it had its own): its step's batch
+    14, WORDS_NUM 12, QL 64^2 and a ragged 17 rows, an all-padding row; at
+    the tolerances of the D 32 cases.  Scores of
     unit variance, as in test_word_attention_edges: the pad bias -1e9 is
     exact in float32 but its neighbours lie 64 apart, so an all-padding row
     is uniform only while every score stays within 32 of 0 (with unit
@@ -118,6 +120,7 @@ def test_word_attention_generic_instance_at_coco_width(cuda, dtype):
     q32, s32, pad = _inputs(cuda, 14, 64 * 64 + 17, 12, 48, COCO_LENS, seed=48)
     q32 = q32 * 48 ** -0.5
     q, s = q32.to(dtype), s32.to(dtype)
+    assert wa.instance(48, q.data_ptr() % 16 == 0) == 48
     before = (wa.word_attention.launches, wa.word_attention.bf16_launches)
     ctx, att = wa.word_attention(q, s, pad)
     torch.cuda.synchronize()
@@ -136,6 +139,82 @@ def test_word_attention_generic_instance_at_coco_width(cuda, dtype):
     torch.testing.assert_close(ctx, ctx_p, rtol=1e-5,
                                atol=2.0 ** -8 * s.float().abs().max().item() + 1e-5)
     assert 10 * _gap(ctx, ctx_p) <= _gap(ctx_p, ctx_f)
+
+
+def _check_d48(q, s, pad, t, lens):
+    """K4 against plain at D 48 in the inputs' dtype (the bfloat16 context
+    within one rounding of one P times the largest source value), and a
+    uniform all-padding row."""
+    ctx, att = wa.word_attention(q, s, pad)
+    torch.cuda.synchronize()
+    ctx_p, att_p = wa.word_attention_plain(q, s, wa.pad_bias(pad, s))
+    torch.testing.assert_close(att, att_p, **TOL)
+    ctx_tol = TOL if q.dtype == torch.float32 else dict(
+        rtol=1e-5, atol=2.0 ** -8 * s.float().abs().max().item() + 1e-5)
+    torch.testing.assert_close(ctx, ctx_p, **ctx_tol)
+    if 0 in lens:
+        row = att[lens.index(0)]
+        torch.testing.assert_close(row, torch.full_like(row, 1.0 / t), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,tiles,extra,lens", [
+    (12, 1, 1, [12, 0]),  # one row past the tile, an all-padding row
+    (12, 3, 17, [12, 7, 2, 0]),  # ragged QL
+    (1, 2, 0, [1, 0]),  # one word
+    (16, 1, 9, [16, 3, 0]),  # the most words of two rows a warp side by side
+    (20, 2, 5, [20, 13, 0]),  # eval_coco's T: 32 word slots
+    (32, 1, 1, [32, 31, 0]),  # every word slot
+])
+def test_word_attention_d48_instance_edges(cuda, dtype, t, tiles, extra, lens):
+    """The D 48 instance at the tile's edges, in float32 and bfloat16;
+    queries scaled by D^-0.5, as in test_word_attention_edges."""
+    ql = tiles * wa.tile_rows() + extra
+    q32, s32, pad = _inputs(cuda, len(lens), ql, t, 48, lens, seed=ql + t)
+    q, s = (q32 * 48 ** -0.5).to(dtype), s32.to(dtype)
+    assert wa.instance(48, q.data_ptr() % 16 == 0) == 48
+    _check_d48(q, s, pad, t, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,ql,lens", [
+    (12, 132 * 128 + 1, [12, 5, 0]),  # one row past a 128-row tile
+    (20, 132 * 128 + 77, [20, 9, 0]),  # ragged QL, 32 word slots
+    (32, 132 * 128 + 1, [32, 31, 0]),  # every slot: over 48 KB of shared memory
+])
+def test_word_attention_d48_instance_tall_grids(cuda, dtype, t, ql, lens):
+    """The D 48 instance on grids of at least three 128-row tiles for each
+    of 132 SMs (B x QL >= 50,688), which take 128 query rows a block."""
+    q32, s32, pad = _inputs(cuda, len(lens), ql, t, 48, lens, seed=t)
+    q, s = (q32 * 48 ** -0.5).to(dtype), s32.to(dtype)
+    _check_d48(q, s, pad, t, lens)
+
+
+@pytest.mark.cuda
+def test_word_attention_instance_selection(cuda):
+    """The compile-time instances take D 32 and 48 on 16-byte aligned query
+    and ctx; any other D, or an unaligned query, takes the generic one."""
+    assert wa.instance(48) == 48 and wa.instance(32) == 32
+    assert wa.instance(48, aligned=False) == 0 and wa.instance(32, aligned=False) == 0
+    assert wa.instance(36) == 0 and wa.instance(256) == 0 and wa.instance(16) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_word_attention_unaligned_d48_query(cuda, dtype):
+    """A contiguous D 48 query that starts one element past a 16-byte
+    boundary (a view into a flat buffer at an odd offset) goes to the
+    generic instance and still matches plain."""
+    lens = [12, 5, 0]
+    q32, s32, pad = _inputs(cuda, 3, 2 * wa.tile_rows() + 7, 12, 48, lens, seed=5)
+    flat = torch.zeros(q32.numel() + 1, dtype=dtype, device=cuda)
+    q = flat[1:].view(q32.shape)
+    q.copy_(q32 * 48 ** -0.5)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    assert wa.instance(48, q.data_ptr() % 16 == 0) == 0
+    _check_d48(q, s32.to(dtype), pad, 12, lens)
 
 
 @pytest.mark.cuda
@@ -160,6 +239,8 @@ def test_word_attention_refuses_what_it_does_not_take(cuda):
     (2, 4096, 18, 32, [18, 5]),  # the GAN step's stage 2 at a small batch
     (3, 4133, 25, 32, [25, 1, 0]),  # ragged QL, all-padding row
     (2, 77, 7, 16, None),
+    (3, 4113, 12, 48, [12, 6, 2]),  # the D 48 instance: COCO's stage 2, ragged
+    (2, 1000, 20, 48, [20, 9]),  # the D 48 instance at 32 word slots
 ])
 def test_word_attention_autograd_matches_plain(cuda, b, ql, t, d, lens):
     """K4 forward with the backward of the Function against autograd
@@ -420,3 +501,30 @@ def test_profiler_marks_the_adam_range_as_annotation(cuda):
     kernels, ranges = device_events(prof.key_averages())
     assert "Optimizer.step#Adam.step" in {e.key for e in ranges}
     assert kernels and not {e.key for e in kernels} & {e.key for e in ranges}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ql,t,d", [
+    (1, 4096, 25, 32),  # the D 32 instance
+    (2, 1000, 12, 48),  # the D 48 instance, 32-row tiles
+    (4, 16384, 12, 48),  # the D 48 instance, 128-row tiles
+    (2, 300, 7, 36),  # the generic instance
+])
+def test_bench_counts_every_word_attention_instance(cuda, b, ql, t, d):
+    """The bench finds K4 on the device's timeline by its name
+    (``bench.KERNEL_NAMES``) whichever instance a launch took: one launch,
+    one kernel event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sba_gan_tpu_torch.bench import KERNEL_NAMES, device_events
+
+    q, s, pad = _inputs(cuda, b, ql, t, d, None)
+    wa.word_attention(q, s, pad)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wa.word_attention(q, s, pad)
+        torch.cuda.synchronize()
+    kernels, _ = device_events(prof.key_averages())
+    hits = [e for e in kernels if KERNEL_NAMES["word_attention"] in e.key]
+    assert sum(e.count for e in hits) == 1, [e.key for e in kernels]
+
