@@ -184,14 +184,41 @@ and nothing of JAX.  Phases, each printing one line or more:
    K4's also in the evaluation phases, each kernel's on the BERT paths
    under ``bert_paths``, on the data-parallel paths under ``dist_paths``,
    on the GAN.B_DCGAN paths under ``dcgan_paths``, K1-K3's on the
-   chunked pretraining and profiling paths under ``chunks_paths``, and each
-   kernel's on the COCO paths under ``coco_paths`` with its COCO rows), then
-   the device JSON line last.
+   chunked pretraining and profiling paths under ``chunks_paths``, each
+   kernel's on the COCO paths under ``coco_paths`` with its COCO rows, and
+   each entry's on the gen-2 paths under ``gen2_paths``, all 0), then
+   the device JSON line last;
+23. the gen-2 conditional StyleGAN at ``configs/gen2_birds.yml``'s widths
+   (128^2 from a 4^2 constant, FMAP_BASE 4096 / FMAP_MAX 256, bert-base at
+   random init, E/C/Z 128, W and A 256, 8 mapping layers, WGAN-GP at
+   lambda 10, CRITIC_ITER 5, RMSprop), after the COCO phases; no kernel is
+   on its path, and each phase requires K1-K4's counts, set to 0 just
+   before, to read 0 just after; its CPU references start in the thread
+   beside the COCO phases: ``gen2_step``, one D step and one G step at
+   batch 8 on the card (TF32 off) against the CPU's float64 run of the
+   same weights (G's constant drawn too), batch and draws, for the preset,
+   for BCE mode (Inception at 299) and for a G with every toggle on
+   (attention style, noise, pixel norm, truncation): the losses, each
+   net's whole gradient and the parameters after RMSprop's first update
+   within the gan_step bounds, the EMA, the frozen BERT tower's largest
+   change 0.0 on both devices, the CPU's own float32 run's readings beside;
+   the preset's step at the bench's precision (TF32 convolutions) within
+   GAN_TF32_TOL's; ``gen2_cli``, ``prepare_data`` over a birds-layout tree
+   it writes (16 JPEGs of CUB's size, 6 captions each of made-up words;
+   sizes 4 to 128, 4 workers), then ``gen2_main`` with the preset: one
+   epoch of the pack at batch 2, a second call that resumes from its
+   checkpoint, one epoch of synthetic data at batch 8 (grids, checkpoints,
+   finite losses); ``gen2_bench``, the training loop at batch 8 and 64 (3
+   D steps of warm-up, a window of 20 D steps and 4 G steps closed by one
+   host read; then the D step, the G step and a loop of 5 D steps and a G
+   step traced apart: device ms, launches, idle share, the kernels by
+   time; peak memory), beside step 10's bird_style lines.
 
 The phases run in the order of ``main``, which differs from the numbers
 above: one thread computes the CPU's reference runs of the GAN steps (step
 9, the BERT steps of 17, the accumulation window of 18, the DCGAN step of
-19, the COCO steps of 21) beside phases whose host time is no metric (the
+19, the COCO steps of 21, the gen-2 steps of 23) beside phases whose host
+time is no metric (the
 pretraining phases, the CLIs, the ranks); each line carries ``at_s``, its
 seconds since the start.  Every bench line times a window of 10 steps and
 traces one (``SHORT_BENCH``); the bench lines after step 10 run on copies
@@ -3859,6 +3886,387 @@ def phase_gan_bench_coco(style_lines):
     return {k: v["kernel_launches_per_step"] for k, v in lines.items()}
 
 
+# ---------------------------------------------------------------------------
+# the gen-2 conditional StyleGAN (configs/gen2_birds.yml)
+# ---------------------------------------------------------------------------
+GEN2_CFG = os.path.join(CONFIGS, "gen2_birds.yml")
+GEN2_BATCH = 8
+# the preset (WGAN-GP), BCE mode (Inception at MODEL.INCEPTION_INPUT 299),
+# and the preset with every G toggle on
+GEN2_RUNS = ("wgan", "bce", "toggles")
+GEN2_TOL = {k: GAN_STEP_TOL[k] for k in ("logs", "d_grads", "g_grads", "ema_excess")}
+GEN2_TOL["params_rms_excess"] = GAN_STEP_TOL["params_adam_excess"]
+GEN2_TF32_TOL = {k: GAN_TF32_TOL[k] for k in ("logs", "d_grads", "g_grads")}
+GEN2_BENCH_BATCHES = (8, 64)
+GEN2_WARMUP, GEN2_D_STEPS = 3, 20  # the window: 20 D steps, a G step after every 5th
+GEN2_TREE_ITEMS, GEN2_TREE_CAPTIONS = 16, 6
+
+
+def gen2_cfg(run):
+    """gen2_birds.yml at batch GEN2_BATCH, as ``run`` of GEN2_RUNS sets it."""
+    from sba_gan_tpu_torch.config import cfg_from_file
+
+    cfg = cfg_from_file(GEN2_CFG)
+    cfg.TRAIN.BATCH_SIZE = GEN2_BATCH
+    if run == "bce":
+        cfg.GEN2.WGAN = False
+    if run == "toggles":
+        cfg.GEN2.update(USE_ATTENTION=True, USE_NOISE=True, USE_PIXEL_NORM=True,
+                        USE_TRUNCATION=True)
+    return cfg
+
+
+def gen2_batch(cfg, batch, seed=SEED, device="cpu"):
+    """Images (B, R, R, 3) in [-1, 1] and wordpiece ids (B, MAX_LENGTH), 4 to
+    MAX_LENGTH of them a caption, zero-padded."""
+    g2 = cfg.GEN2
+    gen = torch.Generator().manual_seed(seed)
+    real = torch.rand((batch, g2.RESOLUTION, g2.RESOLUTION, 3), generator=gen) * 2 - 1
+    lens = torch.randint(4, g2.MAX_LENGTH + 1, (batch,), generator=gen)
+    ids = torch.randint(1, g2.BERT_VOCAB, (batch, g2.MAX_LENGTH), generator=gen)
+    tokens = torch.where(torch.arange(g2.MAX_LENGTH)[None, :] < lens[:, None], ids, 0)
+    return real.to(device), tokens.to(device)
+
+
+def gen2_trainer(cfg, state, device, dtype=torch.float32):
+    """A trainer on ``device`` in ``dtype`` holding ``state``."""
+    from sba_gan_tpu_torch.train.gen2 import Gen2Trainer
+
+    t = Gen2Trainer(cfg, device=device, seed=SEED, dtype=dtype, init=False)
+    t.load_state_dict(state)
+    return t
+
+
+def gen2_step_run(cfg, state, inputs, device, dtype=torch.float32, count=True):
+    """One D step, then one G step, from ``state`` on ``device`` in ``dtype``
+    with the draws of steps 0 and 1: the losses, the gradients, the trained
+    parameters after their update, G's EMA and the BERT tower's largest
+    change; the kernel counts set to 0 just before, read just after (with
+    ``count``); all on the CPU."""
+    wrappers = _kernel_wrappers()
+    t = gen2_trainer(cfg, state, device, dtype)
+    real, tokens = inputs
+    tower = [p.detach().clone() for p in t.generator.bert_embedding.bert.parameters()]
+    if count:
+        reset_launches(wrappers)
+    t0 = time.perf_counter()
+    d_loss, d_grads = t.d_grads(real, tokens, t.draw(0, real.shape[0], t.wgan))
+    t.apply_d(d_grads)
+    g_loss, g_grads, e_grads = t.g_grads(tokens, t.draw(2 * t.step + 1, real.shape[0], False))
+    t.apply_g(g_grads, e_grads)
+    logs = {"d_loss": float(d_loss), "g_loss": float(g_loss)}
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers) if count else None
+    frozen = max(float((p - p0).abs().max())
+                 for p, p0 in zip(t.generator.bert_embedding.bert.parameters(), tower))
+    nets = {"D": (t.d_names, d_grads, t.dnet), "G": (t.g_names, g_grads, t.generator),
+            "E": (t.e_names, e_grads, t.image_encoder)}
+    grads, params, lr = {}, {}, {}
+    for net, (names, gs, module) in nets.items():
+        if not names:
+            continue
+        p_of = dict(module.named_parameters())
+        for n, g in zip(names, gs):
+            grads[f"{net}.{n}"] = g.detach().cpu().double()
+            params[f"{net}.{n}"] = p_of[n].detach().cpu()
+    ema_of = dict(t.g_ema.named_parameters())
+    return dict(logs=logs, grads=grads, params=params,
+                ema={n: ema_of[n].detach().cpu() for n in t.g_names},
+                lr={"D": t.d_opt.lr, "G": t.g_opt.lr, "E": t.e_opt.lr if t.e_opt else None},
+                frozen_tower_max_change=frozen, launches=launches, seconds=seconds)
+
+
+def gen2_cpu_refs():
+    """For each of GEN2_RUNS: its config, the weights drawn from SEED on the
+    CPU (float32; G's learned constant drawn too, as the weights of a
+    trained G: the init's ones are flat in space, so the instance norm after
+    them divides float32 rounding by sqrt(1e-8), and the gradient of the
+    constant's bias, 0 in exact arithmetic, is that rounding alone), its
+    batch, and the CPU's float64 run of :func:`gen2_step_run`, its launches
+    not counted (it runs in a thread beside phases that count)."""
+    from sba_gan_tpu_torch.train.gen2 import Gen2Trainer
+
+    refs = {}
+    for run in GEN2_RUNS:
+        cfg = gen2_cfg(run)
+        state = copy.deepcopy(Gen2Trainer(cfg, device="cpu", seed=SEED).state_dict())
+        const = state["generator"]["const"]
+        const.copy_(torch.randn(const.shape, generator=torch.Generator().manual_seed(SEED)))
+        state["g_ema"]["const"].copy_(const)
+        inputs = gen2_batch(cfg, GEN2_BATCH)
+        refs[run] = (cfg, state, inputs,
+                     gen2_step_run(cfg, state, inputs, "cpu", torch.float64, count=False),
+                     gen2_step_run(cfg, state, inputs, "cpu", count=False))
+    return refs
+
+
+def _rms_first(g):
+    """RMSprop's first update of ``g`` over its learning rate."""
+    return g / torch.sqrt(0.1 * g * g + 1e-8)
+
+
+def gen2_step_readings(got, want) -> dict:
+    """``got`` (a float32 run) against ``want`` (the CPU's float64 run): the
+    losses' relative gaps; each net's gradient norm, and the gap of its
+    whole gradient over that norm (D's, and G's with the image encoder's
+    ``fc``: ``d_grads``, ``g_grads``); each tensor's gap over its own norm,
+    the largest of D's and of G's (``tensor_*``; G's tensors ahead of an
+    instance norm, whose gradients nearly cancel, and its attention's,
+    through a softmax that random weights saturate, are ill-conditioned in
+    float32: the CPU's own float32 step is as far from float64 there); the parameters after their update: each entry's
+    gap less that of RMSprop's first updates of the two gradients and one
+    float32 rounding of the parameter, over lr, at most (``params_rms_
+    excess``), and the largest gap over lr; the EMA: its gap past 1e-3 of
+    the parameters' and two roundings."""
+    ulp = torch.finfo(torch.float32).eps
+    logs = max(abs(got["logs"][k] - want["logs"][k]) / abs(want["logs"][k])
+               for k in want["logs"])
+    norms = {}
+    for net in ("D", "G", "E"):
+        for label, run in (("got", got), ("want", want)):
+            sq = [g.to(READINGS_DEVICE).pow(2).sum() for n, g in run["grads"].items()
+                  if n.startswith(f"{net}.")]
+            if sq:
+                norms.setdefault(net, {})[label] = float(torch.stack(sq).sum().sqrt())
+    errs = {n: _norm_rel(g, want["grads"][n]) for n, g in got["grads"].items()}
+    gaps = {}
+    for n, g in got["grads"].items():
+        net = "D" if n.startswith("D.") else "G"  # the image encoder's fc with G
+        gaps[net] = gaps.get(net, 0.0) + float(
+            (g.to(READINGS_DEVICE) - want["grads"][n].to(READINGS_DEVICE)).pow(2).sum())
+    want_sq = {net: sum(v["want"] ** 2 for k, v in norms.items()
+                        if (k == "D") == (net == "D")) for net in gaps}
+    excess = largest = 0.0
+    for n, g_want in want["grads"].items():
+        lr = want["lr"][n.split(".", 1)[0]]
+        g_got = got["grads"][n].to(READINGS_DEVICE)
+        g_want = g_want.to(READINGS_DEVICE)
+        p_got, p_want = (r["params"][n].to(READINGS_DEVICE, torch.float64)
+                         for r in (got, want))
+        gap = (p_got - p_want).abs()
+        past = gap - lr * (_rms_first(g_got) - _rms_first(g_want)).abs() - ulp * p_want.abs()
+        excess = max(excess, past.max().item() / lr)
+        largest = max(largest, gap.max().item() / lr)
+    ema_excess = 0.0
+    for n, e_want in want["ema"].items():
+        p_got, p_want, e_got, e_want = (t.to(READINGS_DEVICE, torch.float64) for t in (
+            got["params"][f"G.{n}"], want["params"][f"G.{n}"], got["ema"][n], e_want))
+        slack = 1e-3 * (p_got - p_want).abs() + 2 * ulp * e_want.abs()
+        ema_excess = max(ema_excess, ((e_got - e_want).abs() - slack).max().item())
+    return {"logs": logs,
+            "d_grads": (gaps["D"] / want_sq["D"]) ** 0.5,
+            "g_grads": (gaps["G"] / want_sq["G"]) ** 0.5,
+            "grad_norms": norms, "params_rms_excess": excess, "params_max_over_lr": largest,
+            "ema_excess": ema_excess,
+            "tensor_d_grads": max(e for n, e in errs.items() if n.startswith("D.")),
+            "tensor_g_grads": max(e for n, e in errs.items() if not n.startswith("D.")),
+            "worst_grads": _worst(errs)}
+
+
+def phase_gen2_step(refs):
+    """One D step and one G step of gen2_birds.yml at full width (bert-base
+    at random init, 128^2, batch 8) on the card, TF32 off, for each of
+    GEN2_RUNS, against the CPU's float64 run of the same weights, batch and
+    draws (``refs``, :func:`gen2_cpu_refs`; float64 but for the
+    align-corners resizes, G's 4->8 and 8->16 upsampling and BCE's 128->299,
+    which compute in float32 on both devices) within the gan_step bounds
+    (GEN2_TOL); the preset's card step at the bench's precision (GAN_TF32)
+    against it within GEN2_TF32_TOL.  The frozen tower's largest change
+    must be 0.0 on both devices; no K1-K4 launch.  Returns the card's
+    launches by run."""
+    t0 = time.perf_counter()
+    none = dict.fromkeys(GAN_KERNELS, 0)
+    out, bad = {}, []
+    for run in GEN2_RUNS:
+        cfg, state, inputs, cpu64, cpu32 = refs[run]
+        with tf32(cudnn=False, matmul=False):
+            card = gen2_step_run(cfg, state, inputs, "cuda")
+        r = gen2_step_readings(card, cpu64)
+        fields = dict(readings=r, cpu_f32=gen2_step_readings(cpu32, cpu64),
+                      card_vs_cpu_f32={k: v for k, v in gen2_step_readings(card, cpu32).items()
+                                       if k in ("logs", "d_grads", "g_grads", "tensor_d_grads",
+                                                "tensor_g_grads", "worst_grads")},
+                      logs_cuda=card["logs"], logs_cpu64=cpu64["logs"],
+                      frozen_tower_max_change={"cuda": card["frozen_tower_max_change"],
+                                               "cpu64": cpu64["frozen_tower_max_change"]},
+                      step_s={"cuda": card["seconds"], "cpu64": cpu64["seconds"]},
+                      launches=card["launches"])
+        bad += [f"{run}.{k}" for k, tol in GEN2_TOL.items() if not r[k] <= tol]
+        if run == "wgan":
+            with tf32(**GAN_TF32):
+                fast = gen2_step_run(cfg, state, inputs, "cuda")
+            rf = gen2_step_readings(fast, cpu64)
+            fields["tf32"] = {k: rf[k] for k in ("logs", "d_grads", "g_grads", "grad_norms")}
+            bad += [f"{run}.tf32.{k}" for k, tol in GEN2_TF32_TOL.items() if not rf[k] <= tol]
+            bad += [f"{run}.tf32.launches"] if fast["launches"] != none else []
+        if card["frozen_tower_max_change"] != 0.0 or cpu64["frozen_tower_max_change"] != 0.0:
+            bad.append(f"{run}.frozen_tower")
+        if card["launches"] != none or not all(np.isfinite(v) for v in card["logs"].values()):
+            bad.append(f"{run}.launches_or_finite")
+        out[run] = fields
+    g2 = refs["wgan"][0].GEN2
+    say("gen2_step", batch=GEN2_BATCH, resolution=g2.RESOLUTION, bert_layers=g2.BERT_LAYERS,
+        bert_hidden=g2.BERT_HIDDEN, critic_iter=refs["wgan"][0].TRAIN.CRITIC_ITER,
+        inception_input=refs["bce"][0].MODEL.INCEPTION_INPUT, runs=out,
+        tol={**GEN2_TOL, "tf32": GEN2_TF32_TOL}, tf32_run=GAN_TF32,
+        seconds=time.perf_counter() - t0)
+    if bad:
+        raise AssertionError(f"gen2_step: card and CPU disagree in {bad}")
+    return {run: v["launches"] for run, v in out.items()}
+
+
+def preset_resolution() -> int:
+    from sba_gan_tpu_torch.config import cfg_from_file
+
+    return cfg_from_file(GEN2_CFG).GEN2.RESOLUTION
+
+
+def write_gen2_tree(root, seed=SEED):
+    """A birds-layout tree for ``prepare_data``: GEN2_TREE_ITEMS JPEGs of
+    CUB's size in 4 class directories, GEN2_TREE_CAPTIONS captions each of
+    6 to 14 made-up words; (image root, text root)."""
+    rng = np.random.default_rng(seed)
+    words = made_up_words(rng, 200)
+    imgs, txts = os.path.join(root, "images"), os.path.join(root, "text")
+    for i in range(GEN2_TREE_ITEMS):
+        cls = f"{i % 4 + 1:03d}.Class_{i % 4}"
+        os.makedirs(os.path.join(imgs, cls), exist_ok=True)
+        os.makedirs(os.path.join(txts, cls), exist_ok=True)
+        write_smooth_jpeg(rng, CUB_IMAGE, os.path.join(imgs, cls, f"item_{i:04d}.jpg"))
+        caps = [" ".join(rng.choice(words, int(rng.integers(6, 15))))
+                for _ in range(GEN2_TREE_CAPTIONS)]
+        with open(os.path.join(txts, cls, f"item_{i:04d}.txt"), "w") as f:
+            f.write("\n".join(caps) + "\n")
+    return imgs, txts
+
+
+def phase_gen2_cli(out):
+    """``prepare_data`` over a tree of :func:`write_gen2_tree` (sizes 4 to
+    128, 4 workers), then ``gen2_main`` on the card with gen2_birds.yml:
+    one epoch of the pack at batch 2 (8 D steps, a G step after the 5th),
+    a second call that resumes from its checkpoint for another, and one
+    epoch of ``--synthetic`` data at the preset's batch 8; each call's grid
+    and checkpoint, finite losses, no K1-K4 launch."""
+    from sba_gan_tpu_torch import gen2_main, prepare_data
+    from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    imgs, txts = write_gen2_tree(os.path.join(out, "gen2_tree"))
+    pack = os.path.join(out, "gen2_pack")
+    t1 = time.perf_counter()
+    total = prepare_data.main(["--out", pack, "--img_path", imgs, "--txt_path", txts,
+                               "--n_worker", "4", "--sizes", "4", "8", "16", "32", "64", "128"])
+    pack_s = time.perf_counter() - t1
+    runs, calls = {}, []
+    for name, argv in (
+            ("pack", ["--data_dir", pack, "--batch", "2", "--output_dir",
+                      os.path.join(out, "gen2_pack_run")]),
+            ("pack_resumed", ["--data_dir", pack, "--batch", "2", "--output_dir",
+                              os.path.join(out, "gen2_pack_run")]),
+            ("synthetic", ["--synthetic", "--output_dir", os.path.join(out, "gen2_synth")])):
+        reset_launches(wrappers)
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            trainer = gen2_main.main(["--cfg", GEN2_CFG, "--max_epoch", "1", *argv])
+        seconds = time.perf_counter() - t1
+        printed = buf.getvalue()
+        calls.append(read_launches(wrappers))
+        losses = [float(v) for line in printed.splitlines() if "Loss_D" in line
+                  for v in (line.split("Loss_D: ")[1].split()[0],
+                            line.split("Loss_G: ")[1].split()[0])]
+        run_dir = argv[argv.index("--output_dir") + 1]
+        grid = np.asarray(Image.open(os.path.join(run_dir, "Image", "epoch_0.png")))
+        runs[name] = dict(step=trainer.step, losses=losses, grid_shape=list(grid.shape),
+                          checkpoints=Checkpointer(os.path.join(run_dir, "Model")).steps(),
+                          resumed="resumed at step" in printed, seconds=seconds)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("gen2_cli", pack_items=total, pack_s=pack_s, runs=runs, launches=calls,
+        seconds=time.perf_counter() - t0)
+    side = preset_resolution() + 2  # an image and its pad
+    want = {"pack": (8, [8], False, [side + 2, 2 * side + 2, 3]),
+            "pack_resumed": (16, [8, 16], True, None),
+            "synthetic": (8, [8], False, [2 * side + 2, 4 * side + 2, 3])}
+    bad = [name for name, (step, ckpts, resumed, shape) in want.items()
+           if runs[name]["step"] != step or runs[name]["checkpoints"] != ckpts
+           or runs[name]["resumed"] != resumed or not runs[name]["losses"]
+           or not np.all(np.isfinite(runs[name]["losses"]))
+           or (shape and runs[name]["grid_shape"] != shape)]
+    if total != GEN2_TREE_ITEMS or bad or any(c != dict.fromkeys(GAN_KERNELS, 0) for c in calls):
+        raise AssertionError(f"gen2_cli: {total} items, wrong runs {bad}, launches {calls}")
+    return calls
+
+
+def phase_gen2_bench(style_lines, state):
+    """The preset's training loop on the card at PyTorch's TF32 defaults
+    (GAN_TF32, the precision gen2_step checked), from the weights of
+    ``state``, at each of GEN2_BENCH_BATCHES: GEN2_WARMUP D steps, then a
+    window of GEN2_D_STEPS D steps with a G step after every CRITIC_ITER-th,
+    queued back to back and closed by one host read (images/s: the D
+    steps' images over the window); then the D step, the G step and the
+    loop (CRITIC_ITER D steps and one G step) traced apart: device ms,
+    launches, idle share; peak memory; beside the bird_style lines of this
+    call.  No K1-K4 launch, by the wrappers' counts or by name in the
+    traces."""
+    from sba_gan_tpu_torch import bench
+
+    cfg = gen2_cfg("wgan")
+    ci = cfg.TRAIN.CRITIC_ITER
+    t0 = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    lines = {}
+    reset_launches(wrappers)
+    for batch in GEN2_BENCH_BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        t = gen2_trainer(cfg, state, "cuda")
+        real, tokens = gen2_batch(cfg, batch, device="cuda")
+
+        def loop(d_steps):
+            for i in range(d_steps):
+                last = t.d_step(real, tokens)
+                if (i + 1) % ci == 0:
+                    t.g_step(tokens)
+            return last
+        with tf32(**GAN_TF32):
+            float(loop(GEN2_WARMUP))
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            d_loss = float(loop(GEN2_D_STEPS))
+            window_s = time.perf_counter() - w0
+            d = bench.profile_steps(t.d_step, (real, tokens), ci, sync=float)
+            g = bench.profile_steps(t.g_step, (tokens,), 2, sync=float)
+            both = bench.profile_steps(loop, (ci,), 1, sync=float)
+        lines[f"b{batch}"] = dict(
+            batch=batch, d_steps=GEN2_D_STEPS, g_steps=GEN2_D_STEPS // ci,
+            images_per_sec=GEN2_D_STEPS * batch / window_s, window_s=window_s,
+            ms_per_d_step=window_s * 1e3 / GEN2_D_STEPS, d_step=d, g_step=g,
+            loop_of_critic_iter=both, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            d_loss=d_loss, finite=bool(np.isfinite(d_loss)))
+        del t, real, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = read_launches(wrappers)
+    style = {dtype: {"batch": ln["batch"], "images_per_sec": ln["value"],
+                     "device_ms_per_step": ln["profile"]["device_ms_per_step"],
+                     "device_idle_share": ln["profile"]["device_idle_share"],
+                     "peak_memory_bytes": ln["peak_memory_bytes"]}
+             for dtype, ln in style_lines.items()}
+    say("gen2_bench", lines=lines, bird_style=style, tf32_run=GAN_TF32,
+        kernel_launches=launches, seconds=time.perf_counter() - t0)
+    traced = sum(k["launches_per_step"] for v in lines.values()
+                 for p in (v["d_step"], v["g_step"], v["loop_of_critic_iter"])
+                 for k in p["hand_written_kernels"].values())
+    if (launches != dict.fromkeys(GAN_KERNELS, 0) or traced
+            or not all(v["finite"] for v in lines.values())):
+        raise AssertionError(f"gen2_bench: launches {launches}, traced K1-K4 {traced}, "
+                             f"finite {[v['finite'] for v in lines.values()]}")
+    return launches
+
+
 DAMSM_KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     "damsm_sim_fwd": ("sba_gan_tpu_torch/ops/csrc/damsm_sim.cu",
                       "sba_gan_tpu/ops/damsm_sim.py:157"),
@@ -3956,6 +4364,7 @@ def main() -> int:
             coco_pretrain_refs = cpu_pool.submit(coco_pretrain_cpu_refs)
             coco_gan_refs = cpu_pool.submit(gan_step_cpu_refs, COCO_CFG, words_num=None,
                                             n_words=COCO_N_WORDS)
+            gen2_refs = cpu_pool.submit(gen2_cpu_refs)
             dist_cli = phase_dist_cli(out)  # its torchrun processes beside the CLIs below
             next(dist_cli)
             dcgan_cli_launches, dcgan_cub_launches = phase_dcgan_cli(
@@ -3977,6 +4386,11 @@ def main() -> int:
             coco_rows, coco_damsm_rows = phase_kernels_coco()
             dcgan_bench_launches = phase_gan_bench_dcgan(style_lines)
             coco_bench_launches = phase_gan_bench_coco(style_lines)
+            refs = gen2_refs.result()
+            gen2_step_launches = phase_gen2_step(refs)
+            gen2_cli_launches = phase_gen2_cli(out)
+            gen2_bench_launches = phase_gen2_bench(style_lines, refs["wgan"][1])
+            del refs, gen2_refs
     finally:
         if dist_cli is not None:
             dist_cli.close()
@@ -4007,6 +4421,11 @@ def main() -> int:
             "coco_sampling_batch_of_100": (coco_cli["sampling_word_attention"]
                                            if k == "word_attention" else 0),
             "coco_bench_per_step": {b: v[k] for b, v in coco_bench_launches.items()}}
+        for k in GAN_KERNELS}
+    gen2_paths = {  # each kernel's launches on the gen-2 paths: none is on them
+        k: {"gen2_step": {run: v[k] for run, v in gen2_step_launches.items()},
+            "gen2_cli_calls": [c[k] for c in gen2_cli_launches],
+            "gen2_bench": gen2_bench_launches[k]}
         for k in GAN_KERNELS}
     bert_paths = {  # each kernel's launches on the BERT paths
         k: {"bird_bert_gan_step": bert_gan_launches[k],
@@ -4110,6 +4529,8 @@ def main() -> int:
             "dcgan_paths": {"dcgan_bench_step_bfloat16_b30":
                             dcgan_bench_launches["bfloat16_b30"][kname]},
         })
+    for entry in kernels:
+        entry["gen2_paths"] = gen2_paths[entry["name"].removesuffix("_bf16")]
     print(smi, flush=True)  # again, near the end, beside the numbers above
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

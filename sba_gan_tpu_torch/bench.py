@@ -49,7 +49,7 @@ import gc
 import json
 import statistics
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -147,16 +147,18 @@ KERNEL_NAMES = {"word_attention": "word_attention_fwd",
                 "damsm_sim_dwords": "damsm_dwords_kernel"}
 
 
-def profile_steps(step, args_, steps: int) -> Dict:
+def profile_steps(step, args_, steps: int,
+                  sync: Callable = lambda logs: float(logs["errG"])) -> Dict:
     """Device time, launches, idle share and the kernels by time over
-    ``steps`` traced steps."""
+    ``steps`` traced steps, closed by ``sync`` on the last step's result
+    (one host read)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             logs = step(*args_)
-        float(logs["errG"])
+        sync(logs)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, ranges = device_events(prof.key_averages())
     device_ms = sum(_device_us(e) for e in kernels) / 1e3

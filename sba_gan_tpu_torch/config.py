@@ -3,10 +3,11 @@
 The same schema and strict YAML merge as the JAX package's config (unknown
 keys raise ``KeyError``, type mismatches raise ``ValueError``), so every
 preset of the repository loads unchanged.  The port reads ``TREE``,
-``GAN``, ``TEXT``, ``TRAIN`` (the global batch size, epochs, snapshot
+``GAN``, ``TEXT``, ``GEN2`` (the gen-2 StyleGAN, :mod:`train.gen2`),
+``TRAIN`` (the global batch size, epochs, snapshot
 interval, the three learning rates, the RNN gradient clip, ``SMOOTH``,
 ``MIXING``, ``FLAG``, ``NET_E``, ``GRAD_ACCUM`` and ``GRAD_ACCUM_MODE``
-'window' or 'dfresh'), ``RNN_TYPE``, ``MODEL.TEXT_ENCODER`` /
+'window' or 'dfresh', and gen-2's ``CRITIC_ITER``), ``RNN_TYPE``, ``MODEL.TEXT_ENCODER`` /
 ``INCEPTION_INPUT``, and of the ``JAX`` group ``SEED``, ``DTYPE`` and
 ``LOSS_DTYPE`` (float32 or bfloat16, as torch dtypes through
 :func:`compute_dtype` and :func:`loss_dtype`; any other value raises),

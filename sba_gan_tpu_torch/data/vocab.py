@@ -155,6 +155,7 @@ def synthetic_vocab(n_words: int) -> Tuple[Dict[str, int], Dict[int, str]]:
 
 BERT_REPO = "models--bert-base-uncased"
 UNK, CLS, SEP = "[UNK]", "[CLS]", "[SEP]"
+SPECIAL_TOKENS = (UNK, SEP, "[PAD]", CLS, "[MASK]")
 MAX_WORD_CHARS = 100  # a longer word is [UNK]
 _CJK = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
         (0x2B740, 0x2B81F), (0x2B820, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
@@ -225,6 +226,8 @@ class WordPieceTokenizer:
             if tok not in vocab:
                 raise ValueError(f"the BERT vocabulary has no {tok}")
         self.vocab = vocab
+        specials = [t for t in SPECIAL_TOKENS if t in vocab]
+        self._special = re.compile("(" + "|".join(map(re.escape, specials)) + ")")
 
     @classmethod
     def from_file(cls, path: str) -> "WordPieceTokenizer":
@@ -249,7 +252,18 @@ class WordPieceTokenizer:
         return pieces
 
     def tokenize(self, text: str) -> List[str]:
-        return [p for w in bert_pre_tokenize(bert_normalize(text)) for p in self._pieces(w)]
+        """Pieces of ``text``; a special token written in it (``[CLS]``,
+        ``[SEP]``, ``[PAD]``, ``[UNK]``, ``[MASK]``, as they are spelled and
+        where the vocabulary holds them) is one piece, wherever it stands,
+        as in HuggingFace's tokenizer."""
+        out: List[str] = []
+        for i, part in enumerate(self._special.split(text)):
+            if i % 2:
+                out.append(part)
+            else:
+                out += [p for w in bert_pre_tokenize(bert_normalize(part))
+                        for p in self._pieces(w)]
+        return out
 
     def encode(self, text: str, add_special_tokens: bool = True,
                max_length: Optional[int] = None) -> List[int]:

@@ -27,6 +27,7 @@ in at least float32.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -54,12 +55,22 @@ def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return w
 
 
+@functools.lru_cache(maxsize=64)
+def _resize_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """:func:`resize_matrix` on ``device``, made once (a copy from the host
+    each call would wait for the card's queue). Made outside inference mode
+    even when the first caller runs in it: an inference tensor in the cache
+    could not be saved for a later backward through the resize."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(resize_matrix(n_in, n_out)).to(device)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """(B, H, W, C) -> (B, oh, ow, C): bilinear, corners aligned, as two
     products with the separable weight matrices."""
     _, h, w, _ = x.shape
-    wy = torch.from_numpy(resize_matrix(h, size[0])).to(x.device)
-    wx = torch.from_numpy(resize_matrix(w, size[1])).to(x.device)
+    wy = _resize_weights(h, size[0], x.device)
+    wx = _resize_weights(w, size[1], x.device)
     out = torch.einsum("bhwc,ph->bpwc", x.float(), wy)
     out = torch.einsum("bhwc,qw->bhqc", out, wx)
     return out.to(x.dtype)

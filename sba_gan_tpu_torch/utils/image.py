@@ -1,5 +1,5 @@
-"""Image utilities: de-normalization to uint8, a fast PNG encoder and the
-samplers' PNG writer."""
+"""Image utilities: de-normalization to uint8, a fast PNG encoder, the
+samplers' PNG writer and the gen-2 CLI's sample grid."""
 
 from __future__ import annotations
 
@@ -50,3 +50,20 @@ def png_bytes(a: np.ndarray, level: int = 1) -> bytes:
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", comp) + chunk(b"IEND", b""))
+
+
+def make_grid(imgs, nrow: int = 8, pad: int = 2) -> np.ndarray:
+    """(H, W, 3) images in [-1, 1] tiled ``nrow`` to a row with ``pad``
+    black pixels around each -> uint8 (H', W', 3)."""
+    imgs = [to_uint8(i) for i in imgs]
+    n = len(imgs)
+    h, w = imgs[0].shape[:2]
+    ncol = min(nrow, n)
+    nrows = (n + ncol - 1) // ncol
+    grid = np.zeros((nrows * (h + pad) + pad, ncol * (w + pad) + pad, 3), np.uint8)
+    for i, im in enumerate(imgs):
+        r, c = divmod(i, ncol)
+        y = r * (h + pad) + pad
+        x = c * (w + pad) + pad
+        grid[y:y + h, x:x + w] = im
+    return grid

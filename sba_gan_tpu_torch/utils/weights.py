@@ -23,7 +23,10 @@ read reference checkpoints:
 * the RNN gates copy through unchanged (both sides use torch's layout);
 * BERT's ``layer_N/attention_self/query`` -> ``bert.encoder.layer.N.attention.
   self.query`` and so on (the inverse of the JAX package's ``port_bert``),
-  LayerNorm scale/bias -> weight/bias, embedding tables as they are.
+  LayerNorm scale/bias -> weight/bias, embedding tables as they are;
+* the gen-2 generator and D (:func:`gen2_state_from_jax`): paths joined by
+  dots, the BERT tower as above, the constant NHWC -> NCHW, and the
+  transposed convolutions' kernels flipped in space.
 
 A Flax path with no port key raises, and the module's strict
 ``load_state_dict`` raises on a port key that got no value.
@@ -326,6 +329,67 @@ def gan_state_from_jax(state: Mapping, dcgan: Optional[bool] = None) -> Dict[str
         "text_encoder": text_encoder_state_dict(state["text"]["params"]),
         "image_encoder": cnn_encoder_state_dict(state["image"]["params"],
                                                 state["image"]["batch_stats"]),
+    }
+
+
+_GEN2_LEAF = {"kernel": "weight", "bias": "bias", "weight": "weight"}
+
+
+def gen2_key(path: Tuple[str, ...]) -> str:
+    """Port key of one Flax ``Gen2Generator`` or ``Gen2DNet`` path: the BERT
+    tower through :func:`bert_encoder_key` (``bert_embedding/bert/...`` ->
+    ``bert_embedding.bert.embeddings...``), every other path joined with
+    dots, ``kernel`` -> ``weight``."""
+    if path[:2] == ("bert_embedding", "bert"):
+        return "bert_embedding." + bert_encoder_key(path[1:])
+    if path in (("const",), ("bias",)):
+        return path[0]
+    if path[-1] not in _GEN2_LEAF:
+        raise KeyError(f"no port key for Flax gen-2 path {'/'.join(path)}")
+    return ".".join((*path[:-1], _GEN2_LEAF[path[-1]]))
+
+
+def gen2_leaf_to_torch(path: Tuple[str, ...], value: np.ndarray) -> torch.Tensor:
+    """One Flax gen-2 leaf in torch layout: the constant NHWC -> NCHW; a
+    transposed convolution's kernel (kh, kw, in, out) flipped in space and
+    laid out (in, out, kh, kw), which makes torch's ``conv_transpose2d``
+    with padding 1 Flax's 'SAME' ``ConvTranspose``; the rest as
+    :func:`flax_leaf_to_torch`."""
+    if path == ("const",):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.transpose(np.asarray(value, np.float32), (0, 3, 1, 2))))
+    if path[-2:] == ("up_conv", "kernel"):
+        v = np.asarray(value, np.float32)[::-1, ::-1].transpose(2, 3, 0, 1)
+        return torch.from_numpy(np.ascontiguousarray(v))
+    return flax_leaf_to_torch(path, value)
+
+
+def gen2_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``Gen2Generator`` or ``Gen2DNet`` ``params`` -> the port's
+    state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flatten_tree(params).items():
+        path = tuple(key.split("/"))
+        sd[gen2_key(path)] = gen2_leaf_to_torch(path, value)
+    return sd
+
+
+def gen2_state_from_jax(g_params: Mapping, d_params: Mapping,
+                        enc_params: Optional[Mapping] = None,
+                        enc_batch_stats: Optional[Mapping] = None,
+                        g_ema: Optional[Mapping] = None) -> Dict[str, Any]:
+    """The JAX gen-2 trees (as numpy) -> the port's state dicts:
+    ``generator``, ``g_ema`` (G's EMA, else a copy of G), ``dnet`` and,
+    given its params and ``batch_stats``, ``image_encoder`` (the Inception
+    trunk's keys and ``fc``, as :func:`cnn_encoder_state_dict`).  RMSprop
+    moments are not carried."""
+    generator = gen2_state_dict(g_params)
+    return {
+        "generator": generator,
+        "g_ema": generator if g_ema is None else gen2_state_dict(g_ema),
+        "dnet": gen2_state_dict(d_params),
+        "image_encoder": (None if enc_params is None
+                          else cnn_encoder_state_dict(enc_params, enc_batch_stats or {})),
     }
 
 

@@ -18,7 +18,8 @@ import torch
 from _torch_parity import random_bn_stats
 from sba_gan_tpu.models.inception import CNNEncoder as JaxCNNEncoder
 from sba_gan_tpu.models.inception import resize_bilinear_align_corners as jax_resize
-from sba_gan_tpu_torch.models.inception import CNNEncoder, resize_bilinear_align_corners
+from sba_gan_tpu_torch.models.inception import (CNNEncoder, _resize_weights,
+                                                 resize_bilinear_align_corners)
 from sba_gan_tpu_torch.utils import weights as W
 
 NEF, SIZE, B = 32, 75, 4
@@ -102,6 +103,21 @@ def test_resize_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(jax_resize(jnp.asarray(img),
                                                                    (75, 75))),
                                atol=1e-6)
+
+
+def test_resize_first_made_in_inference_mode_still_backpropagates():
+    """The resize's cached weights made by an evaluation under inference
+    mode serve a later training step's backward at the same sizes."""
+    _resize_weights.cache_clear()
+    img = torch.from_numpy(_images(2, 128))
+    with torch.inference_mode():
+        first = resize_bilinear_align_corners(img, (75, 75))
+    x = img.clone().requires_grad_(True)
+    out = resize_bilinear_align_corners(x, (75, 75))
+    out.square().sum().backward()
+    torch.testing.assert_close(out.detach(), first, rtol=0, atol=0)
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert x.grad.abs().sum() > 0
 
 
 def test_unknown_flax_path_raises():

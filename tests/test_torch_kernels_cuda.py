@@ -528,3 +528,49 @@ def test_bench_counts_every_word_attention_instance(cuda, b, ql, t, d):
     hits = [e for e in kernels if KERNEL_NAMES["word_attention"] in e.key]
     assert sum(e.count for e in hits) == 1, [e.key for e in kernels]
 
+
+
+@pytest.mark.cuda
+def test_gen2_generator_and_d_match_the_cpu(cuda):
+    """The gen-2 G (every epilogue toggle on, the BERT tower 1 layer wide 16)
+    and D on the card against the CPU at batch 2, from the same weights and
+    draws, TF32 off: the image, D's features and both heads, and D's
+    gradients of the WGAN critic loss with its gradient penalty (a double
+    backward), atol 1e-4 of each tensor's largest entry (float32 on both
+    sides, sums in another order)."""
+    from sba_gan_tpu_torch.config import cfg_from_dict
+    from sba_gan_tpu_torch.train.gen2 import Gen2Trainer
+
+    cfg = cfg_from_dict({"GEN2": dict(
+        E_DIM=8, C_DIM=6, Z_DIM=5, W_DIM=12, A_DIM=10, MAX_LENGTH=7, M_LAYERS=2,
+        RESOLUTION=32, RESOLUTION_INIT=4, FMAP_BASE=256, FMAP_MAX=32, USE_ATTENTION=True,
+        USE_NOISE=True, USE_PIXEL_NORM=True, USE_TRUNCATION=True, BERT_VOCAB=50,
+        BERT_HIDDEN=16, BERT_LAYERS=1, BERT_HEADS=2, BERT_INTERMEDIATE=32)})
+    gen = torch.Generator().manual_seed(0)
+    real = torch.rand((2, 32, 32, 3), generator=gen) * 2 - 1
+    tokens = torch.tensor([[5, 7, 9, 0, 0, 0, 0], [3, 4, 8, 12, 2, 6, 1]])
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cpu", "cuda"):
+            t = Gen2Trainer(cfg, device=device, seed=1)
+            with torch.no_grad():
+                for p in t.generator.parameters():  # noise gains off zero
+                    p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator()
+                                             .manual_seed(p.numel())).to(p.device))
+            draws = t.draw(0, 2, penalty=True)
+            img = t.sample(tokens, seed=0, use_ema=False, draws=draws)
+            x = real.to(device).permute(0, 3, 1, 2)
+            sent = torch.randn((2, 8), generator=torch.Generator().manual_seed(1)).to(device)
+            with torch.no_grad():
+                feats = t.dnet.features(x)
+                heads = t.dnet.scores(feats, sent)
+            loss, grads = t.d_grads(real, tokens, draws)
+            out[device] = [img, feats, *heads, loss, *grads]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for got, want in zip(out["cuda"], out["cpu"]):
+        got, want = got.detach().cpu(), want.detach()
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()) + 1e-7)

@@ -1,6 +1,6 @@
 """The port's presets against the JAX package's: every preset of
-``sba_gan_tpu/configs/`` (but ``gen2_birds.yml``, whose generation is not
-ported yet: ROADMAP.md) has a copy under ``sba_gan_tpu_torch/configs/`` that
+``sba_gan_tpu/configs/`` (``gen2_birds.yml`` too, since the gen-2 StyleGAN
+was ported) has a copy under ``sba_gan_tpu_torch/configs/`` that
 loads through the port's ``cfg_from_file`` to the values the JAX package's
 ``cfg_from_file`` gives its own file, key for key (defaults included), but
 for the documented differences below.
@@ -20,7 +20,7 @@ from sba_gan_tpu_torch.config import CONFIG_DIR, cfg_from_file, preset
 
 JAX_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "sba_gan_tpu", "configs")
-NOT_PORTED = {"gen2_birds.yml"}
+NOT_PORTED = set()  # every preset is ported
 # {preset: {key: the port's value}} where it differs by design
 DIFFERENCES = {name: {"TRAIN.NET_E": ""} for name in (
     "bird_attn2", "bird_attnDCGAN2", "bird_bert", "bird_mixing", "bird_style",
@@ -48,7 +48,7 @@ def test_every_jax_preset_has_a_port_copy():
                     if f.endswith(".yml"))
     assert ported == _jax_presets()
     assert {"coco_attn2.yml", "eval_coco.yml", os.path.join("DAMSM", "coco.yml"),
-            "bird_attn2.yml", "bird_style_tpu.yml"} <= set(ported)
+            "bird_attn2.yml", "bird_style_tpu.yml", "gen2_birds.yml"} <= set(ported)
 
 
 @pytest.mark.parametrize("rel", _jax_presets())
