@@ -186,8 +186,8 @@ and nothing of JAX.  Phases, each printing one line or more:
    on the GAN.B_DCGAN paths under ``dcgan_paths``, K1-K3's on the
    chunked pretraining and profiling paths under ``chunks_paths``, each
    kernel's on the COCO paths under ``coco_paths`` with its COCO rows, and
-   each entry's on the gen-2 paths under ``gen2_paths``, all 0), then
-   the device JSON line last;
+   each entry's on the gen-2 and gen-1 paths under ``gen2_paths`` and
+   ``gen1_paths``, all 0), then the device JSON line last;
 23. the gen-2 conditional StyleGAN at ``configs/gen2_birds.yml``'s widths
    (128^2 from a 4^2 constant, FMAP_BASE 4096 / FMAP_MAX 256, bert-base at
    random init, E/C/Z 128, W and A 256, 8 mapping layers, WGAN-GP at
@@ -212,12 +212,39 @@ and nothing of JAX.  Phases, each printing one line or more:
    D steps of warm-up, a window of 20 D steps and 4 G steps closed by one
    host read; then the D step, the G step and a loop of 5 D steps and a G
    step traced apart: device ms, launches, idle share, the kernels by
-   time; peak memory), beside step 10's bird_style lines.
+   time; peak memory), beside step 10's bird_style lines;
+24. the gen-1 progressive StyleGAN at ``progressive_main``'s defaults (z
+   128, w 512, 8 mapping layers, fmap_max 512: 512 channels to 32^2, then
+   256, 128, 64; rungs 4^2 to 256^2; G 25.9 M parameters, D 23.1 M; Adam
+   (0.0, 0.99), D at 4x G's rate, the style MLP at 0.01x), after the gen-2
+   phases; no kernel is on its path, and each phase requires K1-K4's counts,
+   set to 0 just before, to read 0 just after; its CPU reference starts in
+   the thread after gen-2's: ``gen1_step``, one D step and one G step at
+   alpha 0.5, batch 4, in WGAN-GP and in R1 mode, on the card (TF32 off)
+   at 32^2 against the CPU's float64 run and at 256^2 against the card's
+   own float64 run of the same weights (the noise gains drawn too), reals
+   and draws: the losses, each net's whole gradient, the parameters after
+   Adam's first update (at beta1 0, lr g / (|g| + 1e-8)) and the EMA within
+   GEN1_TOL, bounds by rung set from the card's own readings, the CPU's own
+   float32 run's readings beside, the WGAN-GP step at the bench's precision
+   within GEN1_TF32_TOL and outside the TF32-off bounds of
+   GEN1_TF32_CAUGHT;
+   ``gen1_cli``, ``progressive_main --synthetic --sched --batch_cap 8
+   --phase 8`` for 6 steps across every rung from 8^2 to 256^2 (grids at
+   32^2 and 256^2, checkpoints, the ``used_samples.txt`` sidecar), a call
+   that resumes for 2 more steps, and ``progressive_generate`` at ``--size
+   256 --n_mixing 2`` on its checkpoint (each grid's pixel size);
+   ``gen1_bench``, the WGAN-GP loop (a D and a G step, n_critic 1, alpha
+   0.5, the rung's ``--sched`` rates) at 64^2 batch 32 and 256^2 batch 16:
+   3 pairs of warm-up, a window of 10 closed by one host read (images/s),
+   then one D step and one G step traced apart (device ms, launches, idle
+   share, the kernels by time), peak memory.
 
 The phases run in the order of ``main``, which differs from the numbers
 above: one thread computes the CPU's reference runs of the GAN steps (step
 9, the BERT steps of 17, the accumulation window of 18, the DCGAN step of
-19, the COCO steps of 21, the gen-2 steps of 23) beside phases whose host
+19, the COCO steps of 21, the gen-2 steps of 23, the gen-1 steps of 24)
+beside phases whose host
 time is no metric (the
 pretraining phases, the CLIs, the ranks); each line carries ``at_s``, its
 seconds since the start.  Every bench line times a window of 10 steps and
@@ -4267,6 +4294,357 @@ def phase_gen2_bench(style_lines, state):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the gen-1 progressive StyleGAN (progressive_main's defaults: z 128, w 512,
+# 8 mapping layers, fmap_max 512, max_size 256)
+# ---------------------------------------------------------------------------
+GEN1_ALPHA = 0.5
+GEN1_MODES = ("wgan-gp", "r1")
+# (rung, batch, reference): 32^2 against the CPU's float64 run, 256^2 against
+# the card's own float64 run (the CPU's would take minutes)
+GEN1_STEP_CASES = ((3, 4, "cpu"), (6, 4, "card"))
+# Bounds of the card's float32 step (TF32 off) against float64, by rung, set
+# from this phase's readings on the H100 (PERF.md, section 6, PR 18): each
+# between the largest float32 reading and the TF32 step's reading where the
+# two lie far enough apart (GEN1_TF32_CAUGHT: the TF32 step must break
+# those bounds), else about 3x the float32 reading (G's whole gradient, the
+# less conditioned, at 256^2)
+GEN1_TOL = {3: {"logs": 3e-5, "d_grads": 1e-3, "g_grads": 6e-3, "params_adam_excess": 1e-5,
+                "ema_excess": EMA_EXCESS},
+            6: {"logs": 3e-4, "d_grads": 2.5e-3, "g_grads": 2e-2, "params_adam_excess": 1e-5,
+                "ema_excess": EMA_EXCESS}}
+GEN1_TF32_TOL = {"logs": 2e-3, "d_grads": 5e-2, "g_grads": 6e-2}  # the TF32 step's own
+GEN1_TF32_CAUGHT = {3: ("logs", "d_grads", "g_grads"), 6: ("logs", "d_grads")}
+GEN1_BENCH = ((4, 32), (6, 16))  # (rung, batch): 64^2 at --sched's batch, 256^2 at the CLI's top
+GEN1_WARMUP, GEN1_STEPS = 3, 10  # the window's D and G steps, as SHORT_BENCH's 10
+
+
+def gen1_state():
+    """The CLI's full-width weights drawn from SEED on the CPU, the noise
+    gains drawn too (N(0, 0.2), as a trained G's: at init they are 0 and
+    the noise maps would not reach the image)."""
+    from sba_gan_tpu_torch.train.progressive import ProgressiveTrainer
+
+    state = copy.deepcopy(ProgressiveTrainer(device="cpu", seed=SEED).state_dict())
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for name, v in state["generator"].items():
+        if ".noise" in name:
+            v.copy_(torch.randn(v.shape, generator=gen) * 0.2)
+            state["g_ema"][name].copy_(v)
+    return state
+
+
+def gen1_trainer(mode, state, device, dtype=torch.float32):
+    from sba_gan_tpu_torch.train.progressive import ProgressiveTrainer
+
+    t = ProgressiveTrainer(loss_mode=mode, device=device, seed=SEED, dtype=dtype, init=False)
+    t.load_state_dict(state)
+    return t
+
+
+def gen1_reals(batch, rung, seed=SEED, device="cpu"):
+    side = 4 * 2 ** rung
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand((batch, side, side, 3), generator=gen) * 2 - 1).to(device)
+
+
+def gen1_step_run(mode, state, rung, batch, device, dtype=torch.float32, count=True):
+    """One D step, then one G step, at ``rung`` with alpha GEN1_ALPHA from
+    ``state`` on ``device`` in ``dtype``, with the draws of steps 0 and 1: the
+    losses, the gradients, the parameters after Adam's first update, the
+    EMA, each parameter's learning rate (the style MLP's times 0.01); the
+    kernel counts set to 0 just before, read just after (with ``count``);
+    the tensors stay on ``device``."""
+    wrappers = _kernel_wrappers()
+    t = gen1_trainer(mode, state, device, dtype)
+    real = gen1_reals(batch, rung)
+    if count:
+        reset_launches(wrappers)
+    t0 = time.perf_counter()
+    d_loss, d_grads = t.d_grads(real, None, GEN1_ALPHA, rung,
+                                t.draw(0, batch, rung, mode == "wgan-gp"))
+    t.apply_d(d_grads)
+    g_loss, g_grads = t.g_grads(batch, None, GEN1_ALPHA, rung,
+                                t.draw(2 * t.step + 1, batch, rung, False))
+    t.apply_g(g_grads)
+    logs = {"d_loss": float(d_loss), "g_loss": float(g_loss)}
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers) if count else None
+    grads, params, lr = {}, {}, {}
+    for net, names, gs, module, opt in (
+            ("D", t.d_names, d_grads, t.discriminator, t.d_opt),
+            ("G", t.g_names, g_grads, t.generator, t.g_opt)):
+        p_of = dict(module.named_parameters())
+        lr_of = {id(p): group["lr"] for group in opt.param_groups for p in group["params"]}
+        for n, g in zip(names, gs):
+            grads[f"{net}.{n}"] = g.detach().clone()
+            params[f"{net}.{n}"] = p_of[n].detach().clone()
+            lr[f"{net}.{n}"] = lr_of[id(p_of[n])]
+    ema = {n: p.detach().clone() for n, p in t.g_ema.named_parameters()}
+    del t
+    return dict(logs=logs, grads=grads, params=params, ema=ema, lr=lr, launches=launches,
+                seconds=seconds)
+
+
+def gen1_cpu_refs():
+    """The weights (:func:`gen1_state`), and for each mode the CPU's float64
+    run of :func:`gen1_step_run` at the first of GEN1_STEP_CASES, and the
+    CPU's float32 run of the WGAN-GP step beside it; launches not counted
+    (it runs in a thread beside phases that count)."""
+    state = gen1_state()
+    rung, batch, _ = GEN1_STEP_CASES[0]
+    runs = {mode: gen1_step_run(mode, state, rung, batch, "cpu", torch.float64, count=False)
+            for mode in GEN1_MODES}
+    runs["wgan-gp_f32"] = gen1_step_run("wgan-gp", state, rung, batch, "cpu", count=False)
+    return state, runs
+
+
+def _adam_first(g):
+    """Adam's first update of ``g`` over its learning rate at beta1 0:
+    g / (|g| + 1e-8)."""
+    return g / (g.abs() + 1e-8)
+
+
+def gen1_step_readings(got, want) -> dict:
+    """``got`` (a float32 run) against ``want`` (a float64 run): the losses'
+    relative gaps; each net's gradient norm and the gap of its whole
+    gradient over that norm (``d_grads``, ``g_grads``); each tensor's gap
+    over its own norm, the largest of D's and of G's (``tensor_*``); the
+    parameters after the update: each entry's gap less that of Adam's first
+    updates of the two gradients and one float32 rounding of the parameter,
+    over its learning rate, at most (``params_adam_excess``), and the
+    largest gap over the learning rate; the EMA: its gap past 0.01 of the
+    parameters' and two roundings."""
+    dev = READINGS_DEVICE
+    ulp = torch.finfo(torch.float32).eps
+    logs = max(abs(got["logs"][k] - want["logs"][k]) / abs(want["logs"][k])
+               for k in want["logs"])
+    norms, gaps = {}, {}
+    for net in ("D", "G"):
+        names = [n for n in want["grads"] if n.startswith(f"{net}.")]
+        sq = lambda run: float(sum(run["grads"][n].to(dev, torch.float64).pow(2).sum()  # noqa: E731
+                                   for n in names))
+        norms[net] = {"got": sq(got) ** 0.5, "want": sq(want) ** 0.5}
+        gaps[net] = float(sum((got["grads"][n].to(dev, torch.float64)
+                               - want["grads"][n].to(dev, torch.float64)).pow(2).sum()
+                              for n in names)) ** 0.5 / norms[net]["want"]
+    errs = {n: _norm_rel(g.to(dev, torch.float64), want["grads"][n].to(dev, torch.float64))
+            for n, g in got["grads"].items()}
+    excess = largest = 0.0
+    for n, g_want in want["grads"].items():
+        lr = want["lr"][n]
+        g_got, g_want = got["grads"][n].to(dev, torch.float64), g_want.to(dev, torch.float64)
+        p_got, p_want = (r["params"][n].to(dev, torch.float64) for r in (got, want))
+        gap = (p_got - p_want).abs()
+        past = gap - lr * (_adam_first(g_got) - _adam_first(g_want)).abs() - ulp * p_want.abs()
+        excess = max(excess, past.max().item() / lr)
+        largest = max(largest, gap.max().item() / lr)
+    ema_excess = 0.0
+    for n, e_want in want["ema"].items():
+        p_got, p_want, e_got, e_want = (x.to(dev, torch.float64) for x in (
+            got["params"][f"G.{n}"], want["params"][f"G.{n}"], got["ema"][n], e_want))
+        slack = 0.01 * (p_got - p_want).abs() + 2 * ulp * e_want.abs()
+        ema_excess = max(ema_excess, ((e_got - e_want).abs() - slack).max().item())
+    return {"logs": logs, "d_grads": gaps["D"], "g_grads": gaps["G"], "grad_norms": norms,
+            "params_adam_excess": excess, "params_max_over_lr": largest,
+            "ema_excess": ema_excess,
+            "tensor_d_grads": max(e for n, e in errs.items() if n.startswith("D.")),
+            "tensor_g_grads": max(e for n, e in errs.items() if n.startswith("G.")),
+            "worst_grads": _worst(errs)}
+
+
+def phase_gen1_step(state, cpu_runs):
+    """One D step and one G step of the gen-1 StyleGAN at the CLI's full
+    width on the card, TF32 off, in each of GEN1_MODES, for each of
+    GEN1_STEP_CASES: at 32^2 against the CPU's float64 run of the same
+    weights, reals and draws (``cpu_runs``, :func:`gen1_cpu_refs`), at 256^2
+    against the card's own float64 run; within GEN1_TOL of the rung; the
+    WGAN-GP step at the bench's precision (GAN_TF32) within GEN1_TF32_TOL,
+    and outside GEN1_TOL's bounds named in GEN1_TF32_CAUGHT (so those
+    bounds tell a float32 step from a TF32 one); the CPU's own float32
+    run's readings beside.  No K1-K4 launch.  Returns the card's launches by case."""
+    t0 = time.perf_counter()
+    none = dict.fromkeys(GAN_KERNELS, 0)
+    out, bad, launches = {}, [], {}
+    for rung, batch, ref in GEN1_STEP_CASES:
+        for mode in GEN1_MODES:
+            key = f"{4 * 2 ** rung}px_{mode}"
+            with tf32(cudnn=False, matmul=False):
+                card = gen1_step_run(mode, state, rung, batch, "cuda")
+                want = (cpu_runs[mode] if ref == "cpu" else
+                        gen1_step_run(mode, state, rung, batch, "cuda", torch.float64,
+                                      count=False))
+            r = gen1_step_readings(card, want)
+            fields = dict(readings=r, reference=f"{ref} float64", logs_cuda=card["logs"],
+                          logs_f64=want["logs"], launches=card["launches"],
+                          step_s={"cuda": card["seconds"], "f64": want["seconds"]})
+            bad += [f"{key}.{k}" for k, tol in GEN1_TOL[rung].items() if not r[k] <= tol]
+            if ref == "cpu" and mode == "wgan-gp":
+                fields["cpu_f32"] = gen1_step_readings(cpu_runs["wgan-gp_f32"], want)
+            if mode == "wgan-gp":
+                with tf32(**GAN_TF32):
+                    fast = gen1_step_run(mode, state, rung, batch, "cuda")
+                rf = gen1_step_readings(fast, want)
+                fields["tf32"] = {k: rf[k] for k in ("logs", "d_grads", "g_grads")}
+                bad += [f"{key}.tf32.{k}" for k, tol in GEN1_TF32_TOL.items()
+                        if not rf[k] <= tol]
+                bad += [f"{key}.tf32_caught.{k}" for k in GEN1_TF32_CAUGHT[rung]
+                        if not rf[k] > GEN1_TOL[rung][k]]
+                bad += [f"{key}.tf32.launches"] if fast["launches"] != none else []
+                del fast
+            if card["launches"] != none or not all(np.isfinite(v) for v in card["logs"].values()):
+                bad.append(f"{key}.launches_or_finite")
+            launches[key] = card["launches"]
+            out[key] = fields
+            del card, want
+            gc.collect()
+            torch.cuda.empty_cache()
+    say("gen1_step", alpha=GEN1_ALPHA, cases=[list(c) for c in GEN1_STEP_CASES], runs=out,
+        tol={**{f"{4 * 2 ** r}px": v for r, v in GEN1_TOL.items()}, "tf32": GEN1_TF32_TOL},
+        tf32_run=GAN_TF32,
+        seconds=time.perf_counter() - t0)
+    if bad:
+        raise AssertionError(f"gen1_step: card and float64 disagree in {bad}")
+    return launches
+
+
+def _grid_shape(n, nrow, side, pad=2):
+    ncol = min(n, nrow)
+    return [(n + ncol - 1) // ncol * (side + pad) + pad, ncol * (side + pad) + pad, 3]
+
+
+def phase_gen1_cli(out):
+    """``progressive_main --synthetic`` on the card at the CLI's full width
+    with ``--sched --batch_cap 8`` and a phase of 8 samples: 6 steps cross
+    every rung from 8^2 to 256^2 (a step a rung), a grid at steps 3 (32^2)
+    and 6 (256^2), checkpoints at 3 and 6 with the ``used_samples.txt``
+    sidecar; a second call resumes and takes 2 more steps at 256^2; then
+    ``progressive_generate`` on that checkpoint at ``--size 256`` with
+    ``--n_mixing 2``: each grid's pixel size, finite weights, no K1-K4
+    launch."""
+    from PIL import Image
+
+    from sba_gan_tpu_torch import progressive_generate, progressive_main
+    from sba_gan_tpu_torch.train.progressive import base_lr
+    from sba_gan_tpu_torch.utils.checkpoint import Checkpointer
+
+    t0 = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    run_dir = os.path.join(out, "gen1")
+    model = os.path.join(run_dir, "Model")
+    base = ["--synthetic", "--sched", "--batch_cap", "8", "--phase", "8", "--sample_every",
+            "3", "--ckpt_every", "3", "--output_dir", run_dir]
+    runs, calls = {}, []
+    for name, steps in (("train", 6), ("resumed", 8)):
+        reset_launches(wrappers)
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            trainer = progressive_main.main(base + ["--steps", str(steps)])
+        seconds = time.perf_counter() - t1
+        calls.append(read_launches(wrappers))
+        printed = buf.getvalue()
+        finite = all(bool(torch.isfinite(p).all()) for p in
+                     list(trainer.generator.parameters()) + list(trainer.discriminator.parameters()))
+        runs[name] = dict(step=trainer.step, checkpoints=Checkpointer(model).steps(),
+                          used_samples=open(os.path.join(model, "used_samples.txt")).read(),
+                          phase_switches=[ln for ln in printed.splitlines()
+                                          if ln.startswith("phase switch")],
+                          resumed="resumed at step" in printed,
+                          lr=[base_lr(trainer.g_opt), base_lr(trainer.d_opt)],
+                          finite=finite, seconds=seconds)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    grids = {s: list(np.asarray(Image.open(os.path.join(run_dir, "Image", f"sample_{s}.png")))
+                     .shape) for s in (3, 6)}
+    samples = os.path.join(out, "gen1_samples")
+    reset_launches(wrappers)
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        progressive_generate.main([model, "--size", "256", "--n_mixing", "2", "--out_dir",
+                                   samples])
+    gen_s = time.perf_counter() - t1
+    calls.append(read_launches(wrappers))
+    for name in ("sample.png", "sample_mixing_0.png", "sample_mixing_1.png"):
+        grids[name] = list(np.asarray(Image.open(os.path.join(samples, name))).shape)
+    say("gen1_cli", runs=runs, grids=grids, generate_s=gen_s, launches=calls,
+        seconds=time.perf_counter() - t0)
+    want_grids = {3: _grid_shape(8, 4, 32), 6: _grid_shape(8, 4, 256),
+                  "sample.png": _grid_shape(15, 5, 256),
+                  "sample_mixing_0.png": _grid_shape(24, 6, 256),
+                  "sample_mixing_1.png": _grid_shape(24, 6, 256)}
+    want = {"train": (6, [3, 6], "48", False), "resumed": (8, [3, 6, 8], "64", True)}
+    bad = [n for n, (step, ckpts, used, resumed) in want.items()
+           if (runs[n]["step"], runs[n]["checkpoints"], runs[n]["used_samples"],
+               runs[n]["resumed"]) != (step, ckpts, used, resumed) or not runs[n]["finite"]]
+    bad += [] if len(runs["train"]["phase_switches"]) == 5 else ["phase_switches"]
+    bad += [str(k) for k, v in want_grids.items() if grids[k] != v]
+    if bad or any(c != dict.fromkeys(GAN_KERNELS, 0) for c in calls):
+        raise AssertionError(f"gen1_cli: wrong {bad}, launches {calls}")
+    return calls
+
+
+def phase_gen1_bench(state, style_lines):
+    """The WGAN-GP training loop on the card at PyTorch's TF32 defaults
+    (GAN_TF32), n_critic 1, alpha GEN1_ALPHA, from the weights of ``state``,
+    at each of GEN1_BENCH: GEN1_WARMUP D and G steps, then a window of
+    GEN1_STEPS D and G steps queued back to back and closed by one host
+    read (images/s: the D steps' images over the window), both learning
+    rates the rung's ``SCHED_LR`` (as ``--sched`` sets them); then one D step
+    and one G step traced apart: device ms, launches, idle share, the
+    kernels by time; peak memory; beside the bird_style lines of this call.
+    No K1-K4 launch, by the wrappers' counts or by name in the traces."""
+    from sba_gan_tpu_torch import bench
+    from sba_gan_tpu_torch.progressive_main import SCHED_LR as SCHED_LR_GEN1
+
+    t0 = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    lines = {}
+    reset_launches(wrappers)
+    for rung, batch in GEN1_BENCH:
+        torch.cuda.reset_peak_memory_stats()
+        side = 4 * 2 ** rung
+        t = gen1_trainer("wgan-gp", state, "cuda")
+        t.with_lr(SCHED_LR_GEN1[side], SCHED_LR_GEN1[side])  # as --sched sets them
+        real = gen1_reals(batch, rung, device="cuda")
+
+        def loop(n):
+            for _ in range(n):
+                d = t.d_step(real, None, GEN1_ALPHA, rung)
+                t.g_step(batch, None, GEN1_ALPHA, rung)
+            return d
+        with tf32(**GAN_TF32):
+            float(loop(GEN1_WARMUP))
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            d_loss = float(loop(GEN1_STEPS))
+            window_s = time.perf_counter() - w0
+            d = bench.profile_steps(t.d_step, (real, None, GEN1_ALPHA, rung), 1, sync=float)
+            g = bench.profile_steps(t.g_step, (batch, None, GEN1_ALPHA, rung), 1, sync=float)
+        lines[f"{side}px_b{batch}"] = dict(
+            resolution=side, batch=batch, steps=GEN1_STEPS,
+            images_per_sec=GEN1_STEPS * batch / window_s, window_s=window_s,
+            ms_per_d_and_g_step=window_s * 1e3 / GEN1_STEPS, d_step=d, g_step=g,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(), d_loss=d_loss,
+            finite=bool(np.isfinite(d_loss)))
+        del t, real
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = read_launches(wrappers)
+    style = {dtype: {"batch": ln["batch"], "images_per_sec": ln["value"]}
+             for dtype, ln in style_lines.items()}
+    say("gen1_bench", lines=lines, bird_style=style, tf32_run=GAN_TF32,
+        kernel_launches=launches, seconds=time.perf_counter() - t0)
+    traced = sum(k["launches_per_step"] for v in lines.values() for p in (v["d_step"], v["g_step"])
+                 for k in p["hand_written_kernels"].values())
+    if (launches != dict.fromkeys(GAN_KERNELS, 0) or traced
+            or not all(v["finite"] for v in lines.values())):
+        raise AssertionError(f"gen1_bench: launches {launches}, traced K1-K4 {traced}, "
+                             f"finite {[v['finite'] for v in lines.values()]}")
+    return launches
+
+
 DAMSM_KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     "damsm_sim_fwd": ("sba_gan_tpu_torch/ops/csrc/damsm_sim.cu",
                       "sba_gan_tpu/ops/damsm_sim.py:157"),
@@ -4365,6 +4743,7 @@ def main() -> int:
             coco_gan_refs = cpu_pool.submit(gan_step_cpu_refs, COCO_CFG, words_num=None,
                                             n_words=COCO_N_WORDS)
             gen2_refs = cpu_pool.submit(gen2_cpu_refs)
+            gen1_refs = cpu_pool.submit(gen1_cpu_refs)
             dist_cli = phase_dist_cli(out)  # its torchrun processes beside the CLIs below
             next(dist_cli)
             dcgan_cli_launches, dcgan_cub_launches = phase_dcgan_cli(
@@ -4391,6 +4770,12 @@ def main() -> int:
             gen2_cli_launches = phase_gen2_cli(out)
             gen2_bench_launches = phase_gen2_bench(style_lines, refs["wgan"][1])
             del refs, gen2_refs
+            gen1, cpu_runs = gen1_refs.result()
+            gen1_step_launches = phase_gen1_step(gen1, cpu_runs)
+            del cpu_runs, gen1_refs
+            gen1_cli_launches = phase_gen1_cli(out)
+            gen1_bench_launches = phase_gen1_bench(gen1, style_lines)
+            del gen1
     finally:
         if dist_cli is not None:
             dist_cli.close()
@@ -4426,6 +4811,11 @@ def main() -> int:
         k: {"gen2_step": {run: v[k] for run, v in gen2_step_launches.items()},
             "gen2_cli_calls": [c[k] for c in gen2_cli_launches],
             "gen2_bench": gen2_bench_launches[k]}
+        for k in GAN_KERNELS}
+    gen1_paths = {  # each kernel's launches on the gen-1 paths: none is on them
+        k: {"gen1_step": {case: v[k] for case, v in gen1_step_launches.items()},
+            "gen1_cli_calls": [c[k] for c in gen1_cli_launches],
+            "gen1_bench": gen1_bench_launches[k]}
         for k in GAN_KERNELS}
     bert_paths = {  # each kernel's launches on the BERT paths
         k: {"bird_bert_gan_step": bert_gan_launches[k],
@@ -4531,6 +4921,7 @@ def main() -> int:
         })
     for entry in kernels:
         entry["gen2_paths"] = gen2_paths[entry["name"].removesuffix("_bf16")]
+        entry["gen1_paths"] = gen1_paths[entry["name"].removesuffix("_bf16")]
     print(smi, flush=True)  # again, near the end, beside the numbers above
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

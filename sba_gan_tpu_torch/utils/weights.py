@@ -26,7 +26,10 @@ read reference checkpoints:
   LayerNorm scale/bias -> weight/bias, embedding tables as they are;
 * the gen-2 generator and D (:func:`gen2_state_from_jax`): paths joined by
   dots, the BERT tower as above, the constant NHWC -> NCHW, and the
-  transposed convolutions' kernels flipped in space.
+  transposed convolutions' kernels flipped in space;
+* the gen-1 progressive G and D (:func:`progressive_state_from_jax`): paths
+  joined by dots, the equalized layers' ``weight`` HWIO -> OIHW or (in,
+  out) -> (out, in), the constant NHWC -> NCHW.
 
 A Flax path with no port key raises, and the module's strict
 ``load_state_dict`` raises on a port key that got no value.
@@ -391,6 +394,45 @@ def gen2_state_from_jax(g_params: Mapping, d_params: Mapping,
         "image_encoder": (None if enc_params is None
                           else cnn_encoder_state_dict(enc_params, enc_batch_stats or {})),
     }
+
+
+def progressive_leaf_to_torch(path: Tuple[str, ...], value: np.ndarray) -> torch.Tensor:
+    """One Flax leaf of the gen-1 progressive G or D in torch layout: the
+    constant (1, S, S, C) -> (1, C, S, S), an equalized conv's ``weight`` HWIO
+    -> OIHW, an equalized dense's ``weight`` (in, out) -> (out, in), biases
+    and noise gains as they are."""
+    v = np.array(value, dtype=np.float32)  # a writable copy
+    if path[-2:] == ("const", "input"):
+        v = np.transpose(v, (0, 3, 1, 2))
+    elif path[-1] == "weight" and v.ndim == 4:
+        v = np.transpose(v, (3, 2, 0, 1))
+    elif path[-1] == "weight" and v.ndim == 2:
+        v = v.T
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
+def progressive_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``StyledGenerator`` or ``ProgressiveDiscriminator`` ``params`` ->
+    the port's state_dict: paths joined with dots (the port's modules carry
+    the Flax names), leaves by :func:`progressive_leaf_to_torch`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flatten_tree(params).items():
+        path = tuple(key.split("/"))
+        if path[-1] not in ("weight", "bias", "input"):
+            raise KeyError(f"no port key for Flax progressive path {key}")
+        sd[".".join(path)] = progressive_leaf_to_torch(path, value)
+    return sd
+
+
+def progressive_state_from_jax(g_params: Mapping, d_params: Mapping,
+                               g_ema: Optional[Mapping] = None) -> Dict[str, Any]:
+    """The JAX gen-1 trees (as numpy) -> the port's ``generator``, ``g_ema``
+    (G's EMA, else a copy of G) and ``discriminator`` state dicts.  Adam's
+    moments are not carried."""
+    generator = progressive_state_dict(g_params)
+    return {"generator": generator,
+            "g_ema": generator if g_ema is None else progressive_state_dict(g_ema),
+            "discriminator": progressive_state_dict(d_params)}
 
 
 def read_npz(path: str) -> Tuple[Dict, Dict, Dict]:
